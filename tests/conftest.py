@@ -50,6 +50,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: compile-heavy test excluded from the default "
                    "fast profile (enable with --runslow)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (and nvcc); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
