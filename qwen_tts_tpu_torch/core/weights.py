@@ -15,7 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from qwen_tts_tpu.core.config import DecoderConfig, TTSModelConfig
+from .config import DecoderConfig, TTSModelConfig
 
 # Extra rope-table rows when M-RoPE is on: section positions may run ahead
 # of the cache position (the JAX package's MROPE_HEADROOM).
@@ -66,7 +66,7 @@ class TTSWeights(NamedTuple):
     text_projection: TextProjectionWeights
 
 
-def make_rope_table(cfg: DecoderConfig, device="cpu") -> RopeTable:
+def make_rope_table(cfg: DecoderConfig, device="cuda") -> RopeTable:
     """f32 cos/sin `[rows, D//2]`, built exactly as the JAX package builds
     it (numpy f32), with `MROPE_HEADROOM` extra rows under M-RoPE."""
     d = cfg.head_dim
@@ -83,7 +83,7 @@ def _normal(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * scale
 
 
-def init_decoder_weights(gen: torch.Generator, cfg: DecoderConfig, device="cpu",
+def init_decoder_weights(gen: torch.Generator, cfg: DecoderConfig, device="cuda",
                          with_heads: bool = True) -> DecoderWeights:
     """Random bf16 decoder weights at the JAX package's scales."""
     h, q, kv, i, d = (cfg.hidden_size, cfg.q_size, cfg.kv_size,
@@ -116,7 +116,7 @@ def init_decoder_weights(gen: torch.Generator, cfg: DecoderConfig, device="cpu",
                           lm_head=lm_head, rope=make_rope_table(cfg, device))
 
 
-def init_tts_weights(seed: int, cfg: TTSModelConfig, device="cpu") -> TTSWeights:
+def init_tts_weights(seed: int, cfg: TTSModelConfig, device="cuda") -> TTSWeights:
     """Seeded random weights for the whole model, made on `device` (so a
     full-width model is drawn on the GPU, not on the host)."""
     gen = torch.Generator(device=device)
@@ -148,7 +148,7 @@ def init_tts_weights(seed: int, cfg: TTSModelConfig, device="cpu") -> TTSWeights
 # ── conversion from the JAX package ─────────────────────────────────────────
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device="cuda") -> torch.Tensor:
     """One array (numpy, or anything `np.asarray` accepts) → tensor, bit-exact.
 
     bf16 arrives as an ml_dtypes array, which `torch.from_numpy` rejects, so
@@ -169,7 +169,7 @@ _NESTED = {
 }
 
 
-def convert_tuple(cls, tree, device="cpu"):
+def convert_tuple(cls, tree, device="cuda"):
     """Build `cls` from an object with the same field names (a JAX
     NamedTuple of arrays), recursing into the nested weight tuples."""
     out = {}
@@ -181,6 +181,6 @@ def convert_tuple(cls, tree, device="cpu"):
     return cls(**out)
 
 
-def from_jax(tree, device="cpu") -> TTSWeights:
+def from_jax(tree, device="cuda") -> TTSWeights:
     """The JAX package's `TTSWeights` (bf16/f32 leaves) → the port's."""
     return convert_tuple(TTSWeights, tree, device)

@@ -1,8 +1,11 @@
 """TTS engine: text → talker → code predictor → vocoder → streamed audio.
 
-Port of `qwen_tts_tpu/engine/tts_engine.py` for its default configuration:
-bf16 weights and KV cache, the "fast" vocoder, M-RoPE on, backend "auto"
-(the CUDA decode-step kernel on a GPU, the dense path on the CPU). The
+Port of `qwen_tts_tpu/engine/tts_engine.py` for bf16 weights and KV cache,
+the "fast" vocoder and M-RoPE on, with the backends "auto" (the CUDA
+decode-step kernel on a GPU, the dense path on the CPU), "mega" (the
+decode-step kernel), "pallas" (dense layers with the CUDA decode-attention
+kernel in every single-token step; the name is the JAX package's) and
+"dense" (plain torch). On the CPU every kernel runs its plain version. The
 public surface is the same — `initialize()`, `synthesize(text)`, async
 `synthesize_streaming(text)`, `get_metrics()` — and so is what a request
 computes: the 8-row conditioning prefill and shifted trailing text of the
@@ -15,7 +18,8 @@ The talker always uses the interleaved (24, 20, 20) M-RoPE of the
 released model, with all three section positions equal to the cache
 position (text-only prompts), as the JAX default does.
 
-The device is `TTSConfig.device`; the engine never picks one. TF32 is
+The device is `TTSConfig.device`, "cuda" unless the caller asks for the
+CPU; the engine never falls back to the CPU. TF32 is
 switched off for matmuls and cuDNN convolutions, so the f32 parts (the
 vocoder, the f32 products of the plain paths) keep full f32 precision.
 
@@ -35,7 +39,7 @@ from typing import AsyncGenerator, Optional
 import numpy as np
 import torch
 
-from qwen_tts_tpu.core.config import (
+from ..core.config import (
     CODEC_BOS,
     CODEC_NOTHINK,
     CODEC_PAD,
@@ -46,8 +50,6 @@ from qwen_tts_tpu.core.config import (
     TTS_PAD,
     TTSModelConfig,
 )
-from qwen_tts_tpu.engine.tokenizer import encode_tts_prompt, load_tokenizer
-
 from ..core.weights import TTSWeights, init_tts_weights
 from ..models.decoder import init_state
 from ..models.text_projection import embed_text_ids
@@ -59,6 +61,7 @@ from ..vocoder.model import (
     init_vocoder_weights,
     vocoder_decode,
 )
+from .tokenizer import encode_tts_prompt, load_tokenizer
 
 _MASK64 = (1 << 64) - 1
 MROPE_SECTION = (24, 20, 20)   # Qwen3-TTS talker, interleaved layout
@@ -83,7 +86,7 @@ class TTSConfig:
     """Engine configuration; the fields of the JAX `TTSConfig` that the
     port serves, plus `device`."""
 
-    device: str = "cpu"                   # "cuda" to run on the GPU
+    device: str = "cuda"                  # "cpu" runs every kernel's plain version
     model_path: Optional[str] = None      # None → random weights from `seed`
     vocoder_path: Optional[str] = None
     chunk_frames: int = 10                # ~0.8 s per chunk at 12.5 Hz
@@ -91,7 +94,7 @@ class TTSConfig:
     seed: int = 0
     max_seq_len: int = 8192               # talker KV-cache length
     vocoder_backend: str = "fast"
-    backend: str = "auto"                 # auto | dense | mega
+    backend: str = "auto"                 # auto | dense | pallas | mega
     quantize: bool | str = False
     kv_cache: str = "bf16"
 
@@ -105,10 +108,6 @@ def _unsupported(cfg: TTSConfig) -> str | None:
         return f"kv_cache={cfg.kv_cache!r} (ROADMAP A10, B1-quant)"
     if cfg.vocoder_backend != "fast":
         return f"vocoder_backend={cfg.vocoder_backend!r} (ROADMAP A11)"
-    if cfg.backend == "pallas":
-        return "backend='pallas' (ROADMAP B3)"
-    if cfg.backend not in ("auto", "dense", "mega"):
-        return f"backend={cfg.backend!r} (ROADMAP A9)"
     return None
 
 
@@ -121,6 +120,8 @@ class TTSEngine:
         missing = _unsupported(self.config)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
+        if self.config.backend not in ("auto", "dense", "pallas", "mega"):
+            raise ValueError(f"unknown backend {self.config.backend!r}")
         mc = model_config or TTSModelConfig()
         talker = dataclasses.replace(mc.talker, max_seq_len=self.config.max_seq_len)
         if talker.mrope_section is None:
@@ -137,11 +138,14 @@ class TTSEngine:
     def initialize(self, weights: Optional[TTSWeights] = None,
                    vocoder_weights: Optional[VocoderWeights] = None):
         """Weights (given, or random from `seed`), vocoder, constant
-        embeddings; on a GPU also builds the decode-step kernel, so no
-        request pays for nvcc."""
+        embeddings; on a GPU also builds the kernels, so no request pays
+        for nvcc. Raises on a CUDA device when the machine has none."""
         if self._initialized:
             return
         cfg, mc, dev = self.config, self.model_config, self.device
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"TTSConfig.device is {cfg.device!r} but no CUDA device "
+                               f"is available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.weights = weights if weights is not None else init_tts_weights(cfg.seed, mc, dev)
@@ -169,8 +173,8 @@ class TTSEngine:
         self._fused_tags = (tts_prefix + codec_embeds[:4]).to(torch.bfloat16)
         self._codec_bos_embed = codec_embeds[4]
 
-        if self._attn_impl == "mega" and dev.type == "cuda":
-            from ..ops.decode_step import load_library
+        if self._attn_impl in ("mega", "pallas") and dev.type == "cuda":
+            from ..ops.cuda_lib import load_library
 
             load_library()
         self._requests = 0
@@ -312,8 +316,9 @@ class TTSEngine:
 
     def get_metrics(self) -> dict:
         """Sample rate, talker cache position, frames kept, and the talker
-        and code-predictor decode steps run so far (each one kernel launch
-        on the "mega" backend)."""
+        and code-predictor decode steps run so far (each one decode-step
+        launch on the "mega" backend, and one decode-attention launch per
+        layer on the "pallas" backend)."""
         state = getattr(self, "_talker_state", None)
         return {
             "sample_rate": self.sample_rate,

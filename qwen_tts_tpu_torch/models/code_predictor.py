@@ -11,8 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from qwen_tts_tpu.core.config import DecoderConfig
-
+from ..core.config import DecoderConfig
 from ..core.weights import CodePredictorWeights
 from ..ops.sampling import sample_logits
 from .decoder import forward_chunk, init_state, matmul

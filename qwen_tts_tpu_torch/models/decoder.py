@@ -12,7 +12,10 @@ the chunk's columns into `state.k_cache` / `state.v_cache` and returns a
 state that shares those tensors with the position advanced. Positions are
 host integers, so no step waits on the device to learn where it is.
 A single-token chunk goes to the CUDA decode-step kernel when
-`attn_impl == "mega"` (`ops/decode_step.py`), as in the JAX package.
+`attn_impl == "mega"` (`ops/decode_step.py`), and its attention to the
+CUDA decode-attention kernel in every layer when `attn_impl == "pallas"`
+(`ops/attention.py`; the name is the JAX package's), as in the JAX
+package. Chunks of more than one token (prefill) stay dense.
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ from typing import NamedTuple, Sequence
 import torch
 import torch.nn.functional as F
 
-from qwen_tts_tpu.core.config import DecoderConfig
-
+from ..core.config import DecoderConfig
 from ..core.weights import DecoderWeights, LayerWeights, RopeTable
+from ..ops.attention import decode_attention
 
 
 class DecodeState(NamedTuple):
@@ -35,7 +38,7 @@ class DecodeState(NamedTuple):
     position: int
 
 
-def init_state(cfg: DecoderConfig, device="cpu") -> DecodeState:
+def init_state(cfg: DecoderConfig, device="cuda") -> DecodeState:
     shape = (cfg.num_layers, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim)
     return DecodeState(
         k_cache=torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -57,7 +60,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def mrope_section_masks(cfg: DecoderConfig, device="cpu") -> list[torch.Tensor]:
+def mrope_section_masks(cfg: DecoderConfig, device="cuda") -> list[torch.Tensor]:
     """Boolean `[D//2]` masks assigning each rotary frequency index to an
     M-RoPE section: contiguous runs, or the interleaved Qwen3-Omni layout
     where index j belongs to section s >= 1 iff j % n == s and j < n*sec[s]
@@ -154,10 +157,12 @@ def _dense_mixed_attention(
 
 
 def _layer_forward(cfg: DecoderConfig, lw: LayerWeights, x: torch.Tensor,
-                   k_old: torch.Tensor, v_old: torch.Tensor, start_pos: int,
-                   cos: torch.Tensor, sin: torch.Tensor):
-    """One layer over a T-token chunk. Returns (x [T,H] f32, k_new, v_new
-    [KVH, T, D] bf16 — the chunk's cache columns)."""
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, li: int,
+                   start_pos: int, cos: torch.Tensor, sin: torch.Tensor,
+                   attn_impl: str = "dense"):
+    """Layer `li` over a T-token chunk; the caches `[L, KVH, S, D]` are only
+    read. Returns (x [T,H] f32, k_new, v_new [KVH, T, D] bf16 — the chunk's
+    cache columns)."""
     T = x.shape[0]
     h_q, h_kv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
     Q, KV = cfg.q_size, cfg.kv_size
@@ -167,7 +172,11 @@ def _layer_forward(cfg: DecoderConfig, lw: LayerWeights, x: torch.Tensor,
     v = qkv[:, Q + KV:].reshape(T, h_kv, d)
     q = apply_rope(rms_norm(q, lw.q_norm, cfg.rms_eps), cos[:, None, :], sin[:, None, :])
     k = apply_rope(rms_norm(k, lw.k_norm, cfg.rms_eps), cos[:, None, :], sin[:, None, :])
-    attn = _dense_mixed_attention(cfg, q, k, v, k_old, v_old, start_pos)
+    if attn_impl == "pallas" and T == 1:
+        attn = decode_attention(q[0].contiguous(), k[0].contiguous(), v[0].contiguous(),
+                                k_cache, v_cache, li, start_pos).reshape(1, h_q * d)
+    else:
+        attn = _dense_mixed_attention(cfg, q, k, v, k_cache[li], v_cache[li], start_pos)
     x = x + matmul(attn, lw.wo)
     gate_up = matmul(rms_norm(x, lw.post_norm, cfg.rms_eps), lw.w_gate_up)
     I = cfg.intermediate_size
@@ -184,15 +193,17 @@ def _check_room(cfg: DecoderConfig, pos: int, T: int) -> None:
 
 
 def forward_layers(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
-                   x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+                   x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   attn_impl: str = "dense"):
     """All layers over a chunk `x [T, H]` f32 with the given rope rows;
-    writes the chunk's cache columns in place. Returns (state, normed)."""
+    writes the chunk's cache columns in place, each after its layer's
+    attention. Returns (state, normed)."""
     T, pos = x.shape[0], state.position
     _check_room(cfg, pos, T)
     for li in range(cfg.num_layers):
         x, k_new, v_new = _layer_forward(
-            cfg, layer_slice(w.layers, li), x, state.k_cache[li],
-            state.v_cache[li], pos, cos, sin)
+            cfg, layer_slice(w.layers, li), x, state.k_cache, state.v_cache, li,
+            pos, cos, sin, attn_impl)
         state.k_cache[li, :, pos:pos + T] = k_new
         state.v_cache[li, :, pos:pos + T] = v_new
     normed = rms_norm(x, w.final_norm, cfg.rms_eps)
@@ -203,7 +214,9 @@ def forward_chunk(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
                   embeds: torch.Tensor, attn_impl: str = "dense",
                   mrope_pos: Sequence[int] | None = None):
     """Run a T-token chunk through all layers. Returns (state, normed [T,H] f32),
-    `normed` being the post-final-RMSNorm hidden state."""
+    `normed` being the post-final-RMSNorm hidden state. `attn_impl` is
+    "dense", "pallas" (the attention kernel when T == 1) or "mega" (the
+    decode-step kernel when T == 1)."""
     T = embeds.shape[0]
     if attn_impl == "mega" and T == 1:
         from ..ops.decode_step import megakernel_forward
@@ -214,7 +227,7 @@ def forward_chunk(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
         return state, normed[None, :]
     _check_room(cfg, state.position, T)
     cos, sin = rope_rows(cfg, w.rope, state.position, T, mrope_pos)
-    return forward_layers(cfg, w, state, embeds.float(), cos, sin)
+    return forward_layers(cfg, w, state, embeds.float(), cos, sin, attn_impl)
 
 
 def lm_head_logits(w: DecoderWeights, normed: torch.Tensor) -> torch.Tensor:
@@ -237,3 +250,21 @@ def decode_step_with_embed(cfg: DecoderConfig, w: DecoderWeights,
     state, normed = forward_chunk(cfg, w, state, embed[None, :],
                                   attn_impl=attn_impl, mrope_pos=mrope_pos)
     return state, torch.argmax(lm_head_logits(w, normed)[0]), normed[0]
+
+
+def decode_step(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
+                token_id: torch.Tensor, attn_impl: str = "dense",
+                mrope_pos: Sequence[int] | None = None):
+    """One decode step from a codec token id (a tensor of one element, on
+    the weights' device). Returns (state, greedy token, normed [H] f32)."""
+    embed = w.embed[token_id.reshape(1)][0]
+    return decode_step_with_embed(cfg, w, state, embed, attn_impl=attn_impl,
+                                  mrope_pos=mrope_pos)
+
+
+def prefill(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
+            embeds: torch.Tensor):
+    """Dense causal prefill of T embeddings [T, H]. Returns (state,
+    last greedy token, last normed [H] f32)."""
+    state, normed = forward_chunk(cfg, w, state, embeds)
+    return state, torch.argmax(lm_head_logits(w, normed[-1:])[0]), normed[-1]

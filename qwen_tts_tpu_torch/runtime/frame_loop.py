@@ -16,8 +16,7 @@ from typing import Callable, NamedTuple, Sequence
 
 import torch
 
-from qwen_tts_tpu.core.config import CODEC_BOS, CODEC_EOS, DecoderConfig
-
+from ..core.config import CODEC_BOS, CODEC_EOS, DecoderConfig
 from ..core.weights import CodePredictorWeights, DecoderWeights
 from ..models.code_predictor import cp_predict
 from ..models.decoder import DecodeState, decode_step_with_embed, forward_chunk

@@ -70,7 +70,7 @@ class VocoderWeights(NamedTuple):
     out_bias: torch.Tensor               # [1]
 
 
-def init_vocoder_weights(seed: int, cfg: VocoderConfig, device="cpu") -> VocoderWeights:
+def init_vocoder_weights(seed: int, cfg: VocoderConfig, device="cuda") -> VocoderWeights:
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -100,7 +100,7 @@ def init_vocoder_weights(seed: int, cfg: VocoderConfig, device="cpu") -> Vocoder
         out_kernel=mat((7, c_in, 1), c_in * 7), out_bias=zeros(1))
 
 
-def vocoder_from_jax(tree, device="cpu") -> VocoderWeights:
+def vocoder_from_jax(tree, device="cuda") -> VocoderWeights:
     """The JAX package's `VocoderWeights` (f32 leaves) → the port's."""
     return VocoderWeights(
         code_embeds=to_torch(tree.code_embeds, device),

@@ -22,7 +22,7 @@ from qwen_tts_tpu_torch.ops.sampling import gumbel_noise, sample_logits
 
 @pytest.fixture(scope="module")
 def both(tiny_cfg, tiny_weights):
-    return tiny_cfg, tiny_weights, from_jax(tiny_weights)
+    return tiny_cfg, tiny_weights, from_jax(tiny_weights, "cpu")
 
 
 def _inputs(cfg, seed):

@@ -28,7 +28,7 @@ MROPE = dataclasses.replace(CFG, mrope_section=(24, 20, 20))
 @pytest.fixture(scope="module")
 def weights():
     jw = init_decoder_weights(jax.random.PRNGKey(11), CFG)
-    return jw, convert_tuple(DecoderWeights, jw)
+    return jw, convert_tuple(DecoderWeights, jw, "cpu")
 
 
 def test_rms_norm_matches_jax():
@@ -54,17 +54,17 @@ def test_apply_rope_matches_jax():
 def test_mrope_rows_match_jax(interleaved):
     cfg = dataclasses.replace(MROPE, mrope_interleaved=interleaved)
     jm = [np.asarray(m) for m in jd.mrope_section_masks(cfg)]
-    tm = [m.numpy() for m in td.mrope_section_masks(cfg)]
+    tm = [m.numpy() for m in td.mrope_section_masks(cfg, "cpu")]
     for a, b in zip(jm, tm, strict=True):
         np.testing.assert_array_equal(a, b)
     pos = (5, 17, 40)
     jc, js = jd.mrope_rows(cfg, j_rope(cfg), jnp.asarray(pos, jnp.int32), 3)
-    tc, ts = td.mrope_rows(cfg, t_rope(cfg), pos, 3)
+    tc, ts = td.mrope_rows(cfg, t_rope(cfg, "cpu"), pos, 3)
     np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
     np.testing.assert_array_equal(np.asarray(js), ts.numpy())
     # equal section positions reproduce the standard rows bit for bit
-    tc2, _ = td.mrope_rows(cfg, t_rope(cfg), (9, 9, 9), 2)
-    np.testing.assert_array_equal(tc2.numpy(), t_rope(cfg).cos[9:11].numpy())
+    tc2, _ = td.mrope_rows(cfg, t_rope(cfg, "cpu"), (9, 9, 9), 2)
+    np.testing.assert_array_equal(tc2.numpy(), t_rope(cfg, "cpu").cos[9:11].numpy())
 
 
 @pytest.mark.parametrize("T,start", [(1, 0), (1, 37), (5, 0), (5, 21)])
@@ -95,13 +95,13 @@ def test_prefill_then_20_coupled_steps_match_jax(weights, cfg):
     jw, tw = weights
     if cfg.mrope_section is not None:
         jw = jw._replace(rope=j_rope(cfg))
-        tw = tw._replace(rope=t_rope(cfg))
+        tw = tw._replace(rope=t_rope(cfg, "cpu"))
     rng = np.random.default_rng(7)
     prompt = rng.standard_normal((8, cfg.hidden_size)).astype(np.float32)
     mp = (lambda p: [p, p, p]) if cfg.mrope_section else (lambda p: None)
     js, jn = jd.forward_chunk(cfg, jw, jd.init_state(cfg), jnp.asarray(prompt),
                               mrope_pos=None if mp(0) is None else jnp.asarray(mp(0)))
-    ts, tn = td.forward_chunk(cfg, tw, td.init_state(cfg), torch.from_numpy(prompt),
+    ts, tn = td.forward_chunk(cfg, tw, td.init_state(cfg, "cpu"), torch.from_numpy(prompt),
                               mrope_pos=mp(0))
     assert ts.position == 8
     np.testing.assert_allclose(np.asarray(jn), tn.numpy(), rtol=2e-2, atol=2e-2)
@@ -127,7 +127,7 @@ def test_prefill_then_20_coupled_steps_match_jax(weights, cfg):
 
 def test_forward_chunk_rejects_positions_past_the_cache(weights):
     _, tw = weights
-    state = td.init_state(CFG)._replace(position=CFG.max_seq_len - 2)
+    state = td.init_state(CFG, "cpu")._replace(position=CFG.max_seq_len - 2)
     with pytest.raises(ValueError, match="max_seq_len"):
         td.forward_chunk(CFG, tw, state, torch.zeros(3, CFG.hidden_size))
 
@@ -141,5 +141,6 @@ def test_lm_head_logits_match_jax(weights):
 
 
 def test_decoder_config_is_shared():
-    # the port uses the JAX package's config class, not a copy
-    assert td.DecoderConfig is DecoderConfig
+    # the port keeps its own copy of the config class, equal field for field
+    assert td.DecoderConfig is not DecoderConfig
+    assert dataclasses.asdict(td.DecoderConfig()) == dataclasses.asdict(DecoderConfig())

@@ -37,28 +37,34 @@ def engines(mc):
     jeng = JEngine(JConfig(max_seq_len=256, chunk_frames=4, subtalker_do_sample=False,
                            warmup=False), model_config=mc)
     jeng.initialize(weights=jw)
-    teng = TTSEngine(TTSConfig(max_seq_len=256, chunk_frames=4, subtalker_do_sample=False),
+    teng = TTSEngine(TTSConfig(device="cpu", max_seq_len=256, chunk_frames=4, subtalker_do_sample=False),
                      model_config=mc)
-    teng.initialize(weights=from_jax(jw), vocoder_weights=vocoder_from_jax(jeng.vocoder_weights))
+    teng.initialize(weights=from_jax(jw, "cpu"),
+                    vocoder_weights=vocoder_from_jax(jeng.vocoder_weights, "cpu"))
     return jeng, teng
 
 
 @pytest.fixture(scope="module")
 def port(mc):
-    eng = TTSEngine(TTSConfig(max_seq_len=256, chunk_frames=4, seed=3), model_config=mc)
+    eng = TTSEngine(TTSConfig(device="cpu", max_seq_len=256, chunk_frames=4, seed=3), model_config=mc)
     eng.initialize()
     return eng
 
 
-def test_engine_matches_jax_engine(engines, monkeypatch):
-    """Greedy codes equal JAX's; the first code that differs (if any, in 16
-    frames) must sit at a near tie of the code predictor's logits (top-2
-    gap < 2e-2), where a bf16 rounding that flips after f32 sums taken in
-    another order decides the argmax."""
+@pytest.fixture(scope="module")
+def jax_chunks(engines):
+    """The JAX engine's first chunks of TEXT, at least 16 frames."""
+    j_chunks = []
+    for audio, frames in engines[0]._generate_audio_chunks(TEXT, 4):
+        j_chunks.append((audio, frames))
+        if sum(len(f) for _, f in j_chunks) >= 16:
+            break
+    return j_chunks
+
+
+def _assert_codes_match_jax(j_chunks, teng, monkeypatch):
     import qwen_tts_tpu_torch.models.code_predictor as tcp
 
-    jeng, teng = engines
-    assert teng._attn_impl == jeng._attn_impl == "dense"        # "auto" on the CPU
     cp_logits = []
 
     def recording(*a, **k):
@@ -67,11 +73,6 @@ def test_engine_matches_jax_engine(engines, monkeypatch):
         return codes
 
     monkeypatch.setattr(frame_loop, "cp_predict", recording)
-    j_chunks = []
-    for audio, frames in jeng._generate_audio_chunks(TEXT, 4):
-        j_chunks.append((audio, frames))
-        if sum(len(f) for _, f in j_chunks) >= 16:
-            break
     t_chunks = list(teng._generate_chunks(TEXT, 4, with_audio=True))
     jf = np.stack([f for _, fr in j_chunks for f in fr])[:16]
     tf = np.stack([f for _, fr in t_chunks for f in fr])[:16]
@@ -87,6 +88,38 @@ def test_engine_matches_jax_engine(engines, monkeypatch):
     for (ja, jfr), (ta, tfr) in zip(j_chunks, t_chunks):
         if len(jfr) == len(tfr) and all((a == b).all() for a, b in zip(jfr, tfr)):
             np.testing.assert_allclose(ja, ta, rtol=0, atol=1e-3)
+
+
+def test_engine_matches_jax_engine(engines, jax_chunks, monkeypatch):
+    """Greedy codes equal JAX's; the first code that differs (if any, in 16
+    frames) must sit at a near tie of the code predictor's logits (top-2
+    gap < 2e-2), where a bf16 rounding that flips after f32 sums taken in
+    another order decides the argmax."""
+    jeng, teng = engines
+    assert teng._attn_impl == jeng._attn_impl == "dense"        # "auto" on the CPU
+    _assert_codes_match_jax(jax_chunks, teng, monkeypatch)
+
+
+def test_pallas_engine_matches_jax_engine(mc, engines, jax_chunks, monkeypatch):
+    """The "pallas" backend (the decode-attention kernel's plain version on
+    the CPU) against the JAX engine's dense backend, under the rule above;
+    its attention runs once per layer of every single-token step and never
+    in a prefill."""
+    from qwen_tts_tpu_torch.models import decoder as td
+
+    teng = engines[1]
+    peng = TTSEngine(TTSConfig(device="cpu", backend="pallas", max_seq_len=256,
+                               chunk_frames=4, subtalker_do_sample=False), model_config=mc)
+    peng.initialize(weights=teng.weights, vocoder_weights=teng.vocoder_weights)
+    assert peng._attn_impl == "pallas"
+    calls = []
+    real = td.decode_attention
+    monkeypatch.setattr(td, "decode_attention", lambda *a: calls.append(a[5]) or real(*a))
+    m0 = peng.get_metrics()
+    _assert_codes_match_jax(jax_chunks, peng, monkeypatch)
+    m1 = peng.get_metrics()
+    assert len(calls) == (mc.talker.num_layers * (m1["talker_steps"] - m0["talker_steps"])
+                          + mc.code_predictor.num_layers * (m1["cp_steps"] - m0["cp_steps"]))
 
 
 def test_streaming_chunk_lengths(port):
@@ -149,7 +182,7 @@ def test_metrics_and_nonstreaming_length(port):
 
 
 @pytest.mark.parametrize("kw", [dict(quantize=True), dict(kv_cache="int8"),
-                                dict(vocoder_backend="code2wav"), dict(backend="pallas"),
+                                dict(vocoder_backend="code2wav"), dict(quantize="int4"),
                                 dict(model_path="/nonexistent")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -35,7 +35,7 @@ CASES = {"talker": (TALKER, True), "code_predictor": (CP, False)}
 def case(request):
     cfg, with_heads = CASES[request.param]
     jw = init_decoder_weights(jax.random.PRNGKey(4), cfg, with_heads=with_heads)
-    return cfg, with_heads, jw, convert_tuple(DecoderWeights, jw)
+    return cfg, with_heads, jw, convert_tuple(DecoderWeights, jw, "cpu")
 
 
 def _cos(a, b):
@@ -53,7 +53,7 @@ def test_plain_matches_pallas_kernel_interpret(case):
     """<= 3 steps against the Pallas kernel body itself."""
     cfg, with_heads, jw, tw = case
     rng = np.random.default_rng(5)
-    js, ts = jd.init_state(cfg), td.init_state(cfg)
+    js, ts = jd.init_state(cfg), td.init_state(cfg, "cpu")
     for step in range(3):
         embed = rng.standard_normal(cfg.hidden_size).astype(np.float32)
         js, jl, jh = jds.megakernel_forward.__wrapped__(
@@ -72,7 +72,7 @@ def test_plain_matches_pallas_kernel_interpret(case):
 def test_plain_matches_dense_oracle_20_coupled_steps(case):
     cfg, with_heads, jw, tw = case
     embed = np.random.default_rng(6).standard_normal(cfg.hidden_size).astype(np.float32)
-    js, ts = jd.init_state(cfg), td.init_state(cfg)
+    js, ts = jd.init_state(cfg), td.init_state(cfg, "cpu")
     matches = 0
     for step in range(20):
         js, jt, jh = jd.decode_step_with_embed(cfg, jw, js, jnp.asarray(embed))
@@ -88,8 +88,8 @@ def test_skipping_the_head_leaves_outputs_unchanged(case):
     cfg, _, _, tw = case
     embed = torch.from_numpy(np.random.default_rng(8).standard_normal(
         cfg.hidden_size).astype(np.float32))
-    sa, la, ha = tds.megakernel_forward(cfg, tw, td.init_state(cfg), embed)
-    sb, lb, hb = tds.megakernel_forward(cfg, tw, td.init_state(cfg), embed, with_head=False)
+    sa, la, ha = tds.megakernel_forward(cfg, tw, td.init_state(cfg, "cpu"), embed)
+    sb, lb, hb = tds.megakernel_forward(cfg, tw, td.init_state(cfg, "cpu"), embed, with_head=False)
     assert lb is None and la.shape == (cfg.vocab_size,)
     assert torch.equal(ha, hb)
     assert torch.equal(sa.k_cache, sb.k_cache) and torch.equal(sa.v_cache, sb.v_cache)
@@ -97,7 +97,7 @@ def test_skipping_the_head_leaves_outputs_unchanged(case):
 
 def test_wrapper_rejects_position_past_the_cache(case):
     cfg, _, _, tw = case
-    state = td.init_state(cfg)._replace(position=cfg.max_seq_len)
+    state = td.init_state(cfg, "cpu")._replace(position=cfg.max_seq_len)
     with pytest.raises(ValueError, match="max_seq_len"):
         tds.megakernel_forward(cfg, tw, state, torch.zeros(cfg.hidden_size))
 
@@ -106,7 +106,7 @@ def test_wrapper_has_no_plain_fallback_off_the_cpu(case):
     """Only a CPU tensor takes the plain version; another device raises."""
     cfg, _, _, tw = case
     with pytest.raises(ValueError, match="no kernel"):
-        tds.megakernel_forward(cfg, tw, td.init_state(cfg),
+        tds.megakernel_forward(cfg, tw, td.init_state(cfg, "cpu"),
                                torch.zeros(cfg.hidden_size, device="meta"))
 
 

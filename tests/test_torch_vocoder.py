@@ -36,7 +36,7 @@ def test_vocoder_decode_matches_jax(name, kw, T):
     jw = jv.init_vocoder_weights(jax.random.PRNGKey(1), jcfg)
     codes = _codes(T, 0, jcfg)
     a = np.asarray(jv.vocoder_decode(jcfg, jw, jnp.asarray(codes)))
-    b = tv.vocoder_decode(tcfg, tv.vocoder_from_jax(jw), torch.from_numpy(codes)).numpy()
+    b = tv.vocoder_decode(tcfg, tv.vocoder_from_jax(jw, "cpu"), torch.from_numpy(codes)).numpy()
     assert b.shape == (T * tcfg.hop_length,)
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
@@ -65,7 +65,7 @@ def test_same_conv1d_matches_lax(K, groups):
 
 
 def test_embed_text_ids_matches_jax(tiny_weights):
-    tp = from_jax(tiny_weights).text_projection
+    tp = from_jax(tiny_weights, "cpu").text_projection
     ids = np.array([0, 5, 200, 511, 151671, 151673], dtype=np.int32)  # specials clamp
     a = np.asarray(j_embed(tiny_weights.text_projection, jnp.asarray(ids)).astype(jnp.float32))
     b = t_embed(tp, torch.from_numpy(ids).long())

@@ -43,7 +43,7 @@ def _assert_bit_exact(jax_tree, torch_tree):
 
 
 def test_from_jax_bit_exact(tiny_weights):
-    port = tw.from_jax(tiny_weights)
+    port = tw.from_jax(tiny_weights, "cpu")
     assert isinstance(port, tw.TTSWeights)
     assert port.talker.layers.wqkv.dtype == torch.bfloat16
     assert port.talker.rope.cos.dtype == torch.float32
@@ -53,7 +53,7 @@ def test_from_jax_bit_exact(tiny_weights):
 def test_vocoder_from_jax_bit_exact():
     cfg = JVocoderConfig(dim=32, prenet_blocks=2)
     jw = j_init_vocoder(jax.random.PRNGKey(3), cfg)
-    _assert_bit_exact(jw, vocoder_from_jax(jw))
+    _assert_bit_exact(jw, vocoder_from_jax(jw, "cpu"))
 
 
 def test_rope_table_matches_jax():
@@ -61,16 +61,16 @@ def test_rope_table_matches_jax():
 
     cfg = tiny_test_config(max_seq_len=64).talker
     for c in (cfg, cfg.__class__(**{**cfg.__dict__, "mrope_section": (24, 20, 20)})):
-        jr, tr = j_rope(c), tw.make_rope_table(c)
+        jr, tr = j_rope(c), tw.make_rope_table(c, "cpu")
         np.testing.assert_array_equal(np.asarray(jr.cos), tr.cos.numpy())
         np.testing.assert_array_equal(np.asarray(jr.sin), tr.sin.numpy())
 
 
 def test_init_tts_weights_seeded_layout():
     cfg = tiny_test_config(max_seq_len=64)
-    a = tw.init_tts_weights(5, cfg)
-    b = tw.init_tts_weights(5, cfg)
-    c = tw.init_tts_weights(6, cfg)
+    a = tw.init_tts_weights(5, cfg, "cpu")
+    b = tw.init_tts_weights(5, cfg, "cpu")
+    c = tw.init_tts_weights(6, cfg, "cpu")
     t = cfg.talker
     assert a.talker.layers.wqkv.shape == (t.num_layers, t.hidden_size,
                                           t.q_size + 2 * t.kv_size)
@@ -127,6 +127,6 @@ def test_to_torch_dtypes(ml):
     x = np.arange(12, dtype=np.float32).reshape(3, 4) / 7
     if ml:
         x = x.astype(ml_dtypes.bfloat16)
-    t = tw.to_torch(x)
+    t = tw.to_torch(x, "cpu")
     assert t.dtype == (torch.bfloat16 if ml else torch.float32)
     np.testing.assert_array_equal(_bits(x), _bits(t))

@@ -4,7 +4,7 @@
     python3 tools/profile_port.py [profile] [phases] [positions]
 
 With no argument all three run, at full width (Qwen3-TTS-12Hz-0.6B, random
-weights from seed 0, the default `TTSConfig(device="cuda")`):
+weights from seed 0, the default `TTSConfig()`, which runs on the card):
 
   profile    one warm 14-word streaming request under `torch.profiler`:
              wall time with and without the profiler, device busy time,
@@ -199,7 +199,7 @@ def main() -> int:
         return 1
     which = sys.argv[1:] or ["profile", "phases", "positions"]
     card = _card()
-    eng = TTSEngine(TTSConfig(device="cuda"))
+    eng = TTSEngine(TTSConfig())
     eng.initialize()
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as out:
