@@ -45,10 +45,33 @@ is printed):
      `scaled_dot_product_attention` on bf16 tensors of the same prefix
      (the port never calls it); generation of 64 steps beside its plain
      version, and of 256 steps from position 0 as tokens/s beside the
-     decode-step host loop's and the weight-bandwidth bound.
-The next-to-last line is a JSON object describing the three kernels; the
-last line is {"ok": true, "device": {...}}. JAX and the JAX package are
-blocked for the whole run: the port must not need them.
+     decode-step host loop's and the weight-bandwidth bound;
+  9. the quantized forms of the decode-step kernel against its plain
+     version at full width: int8 per channel, int8 with 128-row groups,
+     int4-g128 and mixed, each with a bf16 and an int8 cache, the talker at
+     positions 0, 1 and 300 over a random cache and the code predictor
+     (bf16 cache, bf16 heads) at 2 and 14: normed cosine >= 0.999, logits
+     within 2e-2 * max(1, max |ref|), cache columns (int8 ones dequantized)
+     at phase 2's bar, and layer 0's int8 rows within 1 LSB with their
+     scales within rtol 5e-3 (deeper int8 rows carry phase 2's bf16 drift
+     into their rounding: their LSB differences are counted and printed);
+ 10. the quantized main path, `TTSConfig(quantize="int8",
+     kv_cache="int8")`: three streaming requests and one `synthesize` with
+     phase 3's checks and decode-step launches == decode steps, then the
+     reduced model's GPU-versus-CPU parity on that configuration (backend
+     "mega" on both: the kernel and its plain version); then one streaming
+     request each with quantize "int4" and "mixed", kv_cache "int8";
+ 11. generation on int8+kv8, int4+kv8 and mixed+kv8 held to the
+     decode-step loop bit for bit (tokens, cache rows and scales) as in
+     phase 6;
+ 12. times of each form: talker step at position 300 over an int8 cache
+     (kernel call, device, plain, the form's bound) and code-predictor
+     step, generation of 64 and 256 steps for each form of phase 11, and
+     the int8+kv8 engine's TTFC and streaming RTF.
+The next-to-last line is a JSON object describing the kernels, one entry
+per quantized form as well; the last line is {"ok": true, "device":
+{...}}. JAX and the JAX package are blocked for the whole run: the port
+must not need them.
 """
 
 from __future__ import annotations
@@ -79,6 +102,16 @@ ATTN_TIMED = (300, 4095, 8191)
 ATTN_LAYER = 27
 GEN_STEPS = 64
 GEN_TIMED_STEPS = 256
+GEN_FORMS = ("int8", "int4", "mixed")   # weight forms of the kv8 generation phases
+
+
+def _quant_forms():
+    """label -> (quantizer, keyword arguments) of the weight forms."""
+    from qwen_tts_tpu_torch.core.weights import QUANTIZERS
+
+    return {"int8": (QUANTIZERS["int8"], {}),
+            "int8g128": (QUANTIZERS["int8"], {"group_size": 128}),
+            "int4": (QUANTIZERS["int4"], {}), "mixed": (QUANTIZERS["mixed"], {})}
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
@@ -144,61 +177,111 @@ def _bound_ms(nbytes: float, flops: float):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def step_cost(cfg, w, pos: int, with_head: bool):
+def step_cost(cfg, w, pos: int, with_head: bool, kv8: bool = False):
     """(bytes, FLOPs) one decode step at cache row `pos` must move and do:
-    every layer weight read once, the cache prefix read once, the new K/V
-    column written, the input row read and the outputs written."""
+    every layer weight read once (in its form: bf16, int8 or packed int4,
+    with its f32 scales), the cache prefix read once (int8 rows with their
+    f32 scales for an int8 cache), the new K/V column written, the input
+    row read and the outputs written. FLOPs count 2 per weight whatever its
+    storage; they are held to the bf16 tensor-core rate, the fastest type
+    the products could run in (every form is bytes-bound by far)."""
     lw = w.layers
+    L, H, I, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    KVH, D, HQ, Q, KV = cfg.num_kv_heads, cfg.head_dim, cfg.num_q_heads, cfg.q_size, cfg.kv_size
     wbytes = sum(t.numel() * t.element_size() for t in lw) + w.final_norm.numel() * 2
-    wflops = 2 * sum(t.numel() for t in (lw.wqkv, lw.wo, lw.w_gate_up, lw.w_down))
+    wflops = 2 * L * (H * (Q + 2 * KV) + Q * H + H * 2 * I + I * H)
     if with_head:
-        wbytes += w.lm_head.numel() * 2
-        wflops += 2 * w.lm_head.numel()
-    L, KVH, D, HQ = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.num_q_heads
-    cache = 2 * L * KVH * pos * D * 2
-    io = 2 * L * KVH * D * 2 + cfg.hidden_size * 4 * 2 + (cfg.vocab_size * 4 if with_head else 0)
+        head_s = getattr(w, "lm_head_s", None)
+        wbytes += w.lm_head.numel() * w.lm_head.element_size() + (
+            0 if head_s is None else head_s.numel() * 4)
+        wflops += 2 * H * V
+    row = D + 4 if kv8 else D * 2                  # bytes of one cached head row
+    cache = 2 * L * KVH * pos * row
+    io = 2 * L * KVH * row + H * 4 * 2 + (V * 4 if with_head else 0)
     attn_flops = 4 * L * HQ * (pos + 1) * D
     return wbytes + cache + io, wflops + attn_flops
 
 
-def compare_kernel(cfg, w, pos: int, with_head: bool, gen, mrope: bool):
-    """Kernel vs plain version at one position over a random cache."""
+def _clone(state):
+    """A copy of a decode state's cache tensors (and scales)."""
+    return state._replace(**{f: t.clone() for f, t in state._asdict().items()
+                             if hasattr(t, "clone")})
+
+
+def random_state(cfg, pos: int, gen, kv8: bool = False):
+    """A cache with rows [0, pos) random (quantized per row for int8)."""
     import torch
-    from qwen_tts_tpu_torch.models.decoder import init_state, rope_rows
+    from qwen_tts_tpu_torch.models.decoder import init_state, quantize_rows
+
+    state = init_state(cfg, "cuda", torch.int8 if kv8 else torch.bfloat16)
+    for cache, scales in ((state.k_cache, state.k_scale), (state.v_cache, state.v_scale)):
+        if pos:
+            rows = torch.randn(cache[:, :, :pos].shape, generator=gen, device="cuda")
+            if kv8:
+                cache[:, :, :pos], scales[:, :, :pos] = quantize_rows(rows)
+            else:
+                cache[:, :, :pos] = rows.to(torch.bfloat16)
+    return state._replace(position=pos)
+
+
+def compare_kernel(cfg, w, pos: int, with_head: bool, gen, mrope: bool, kv8: bool = False,
+                   quant_bar: bool = False):
+    """Kernel vs plain version at one position over a random cache.
+    `quant_bar` adds the logits bar of the quantized forms: within
+    2e-2 * max(1, max |ref|)."""
+    import torch
+    from qwen_tts_tpu_torch.models.decoder import rope_rows
     from qwen_tts_tpu_torch.ops.decode_step import (
         megakernel_forward,
         megakernel_forward_reference,
     )
 
     dev = w.embed.device
-    state = init_state(cfg, dev)
-    if pos:
-        shape = state.k_cache[:, :, :pos].shape
-        state.k_cache[:, :, :pos] = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        state.v_cache[:, :, :pos] = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    state = state._replace(position=pos)
+    state = random_state(cfg, pos, gen, kv8)
     embed = torch.randn(cfg.hidden_size, generator=gen, device=dev)
     mp = [pos] * len(cfg.mrope_section) if mrope else None
-    sk = state._replace(k_cache=state.k_cache.clone(), v_cache=state.v_cache.clone())
+    sk = _clone(state)
     _, logits_k, normed_k = megakernel_forward(cfg, w, sk, embed, mrope_pos=mp, with_head=with_head)
     cos, sin = rope_rows(cfg, w.rope, pos, 1, mp)
     _, logits_r, normed_r = megakernel_forward_reference(cfg, w, state, embed, cos, sin, with_head)
     torch.cuda.synchronize()
-    res = {"pos": pos, "normed_cos": _cos(normed_k, normed_r),
+    res = {"pos": pos, "kv": "int8" if kv8 else "bf16", "normed_cos": _cos(normed_k, normed_r),
            "normed_max_abs": float((normed_k - normed_r).abs().max())}
-    # K/V columns, layer by layer: max |diff| <= 2e-2 * max(1, max |ref|) and
-    # relative L2 error < 2e-2. Scaled, not a flat atol: after ~10 layers the
-    # two versions' different f32 summation orders have flipped enough bf16
-    # roundings that 28-layer columns of magnitude ~4 differ by 1-2 bf16 ulps
-    # (0.016-0.031) while their relative error stays below 1%.
-    for name, a, b in (("k", sk.k_cache, state.k_cache), ("v", sk.v_cache, state.v_cache)):
-        ca, cb = a[:, :, pos].float().flatten(1), b[:, :, pos].float().flatten(1)
+    # K/V columns, layer by layer: max |diff| <= 2e-2 * max(1, max |ref|)
+    # and relative L2 error < 2e-2. Scaled, not a flat atol: after ~10
+    # layers the two versions' different f32 summation orders have flipped
+    # enough bf16 roundings that 28-layer columns of magnitude ~4 differ by
+    # 1-2 bf16 ulps (0.016-0.031) while their relative error stays below 1%.
+    # An int8 column is compared dequantized (rows times scales) at that
+    # bar; its layer-0 rows, computed from the same inputs up to summation
+    # order, must also be within 1 LSB with scales within rtol 5e-3. Deeper
+    # rows quantize f32 values that carry the drift above, so they may
+    # differ by more LSBs (counted, not bounded).
+    for name, a, b, sa, sb in (("k", sk.k_cache, state.k_cache, sk.k_scale, state.k_scale),
+                               ("v", sk.v_cache, state.v_cache, sk.v_scale, state.v_scale)):
+        ca, cb = a[:, :, pos].float(), b[:, :, pos].float()
+        ok0 = True
+        if kv8:
+            lsb = (ca - cb).abs()                                  # [L, KVH, D]
+            srel = (sa[:, :, pos] - sb[:, :, pos]).abs() / sb[:, :, pos]
+            over = (lsb > 1).flatten(1).any(dim=1).nonzero()
+            res[f"{name}_row_max_lsb"] = int(lsb.max())
+            res[f"{name}_row_max_lsb_layer0"] = int(lsb[0].max())
+            res[f"{name}_rows_over_1lsb_frac"] = float((lsb > 1).float().mean())
+            res[f"{name}_first_layer_over_1lsb"] = int(over[0]) if len(over) else None
+            res[f"{name}_scale_max_rel"] = float(srel.max())
+            res[f"{name}_scale_max_rel_layer0"] = float(srel[0].max())
+            ok0 = res[f"{name}_row_max_lsb_layer0"] <= 1 and \
+                res[f"{name}_scale_max_rel_layer0"] <= 5e-3
+            ca, cb = ca * sa[:, :, pos, None], cb * sb[:, :, pos, None]
+        ca, cb = ca.flatten(1), cb.flatten(1)
         d = (ca - cb).abs()
         bound = 2e-2 * cb.abs().max(dim=1).values.clamp_min(1.0)
         rel = d.norm(dim=1) / cb.norm(dim=1)
         res[f"{name}_col_max_abs"] = float(d.max())
         res[f"{name}_col_max_rel_l2"] = float(rel.max())
-        res[f"{name}_col_ok"] = bool((d.max(dim=1).values <= bound).all() and (rel < 2e-2).all())
+        res[f"{name}_col_ok"] = bool(ok0 and (d.max(dim=1).values <= bound).all()
+                                     and (rel < 2e-2).all())
     assert res["normed_cos"] > 0.999, res
     assert res["k_col_ok"] and res["v_col_ok"], res
     if with_head:
@@ -207,6 +290,8 @@ def compare_kernel(cfg, w, pos: int, with_head: bool, gen, mrope: bool):
         res["argmax_equal"] = int(logits_k.argmax()) == int(logits_r.argmax())
         res["logits_max_abs"] = float((logits_k - logits_r).abs().max())
         assert res["argmax_equal"] or tie, res
+        if quant_bar:
+            assert res["logits_max_abs"] <= 2e-2 * max(1.0, float(logits_r.abs().max())), res
     return res, (sk, state, embed, cos, sin, mp)
 
 
@@ -300,10 +385,10 @@ def record_logits(frame_loop):
     return talker, cp, undo
 
 
-def reduced_engine_parity(backend: str = "auto"):
+def reduced_engine_parity(backend: str = "auto", **quant):
     """A reduced model, greedy, on the GPU (kernels) and on the CPU (plain
-    path), both on `backend`. The first frame's 16 codes must be equal and
-    its audio close (atol 1e-3). Over the first 8 frames, >= 95% of the
+    path), both on `backend`, with the engine options `quant`. The first
+    frame's 16 codes must be equal and its audio close (atol 1e-3). Over the first 8 frames, >= 95% of the
     codes must be equal, or else the first code that differs must be a near
     tie: the CPU logits that chose it have a top-2 gap < 2e-2 and the GPU
     chose the runner-up. (The two devices sum in different orders; one
@@ -322,7 +407,8 @@ def reduced_engine_parity(backend: str = "auto"):
     out = {}
     for dev in ("cuda", "cpu"):
         eng = TTSEngine(TTSConfig(device=dev, backend=backend, max_seq_len=256,
-                                  chunk_frames=4, subtalker_do_sample=False), model_config=mc)
+                                  chunk_frames=4, subtalker_do_sample=False, **quant),
+                        model_config=mc)
         to_dev = lambda t: t.to(dev)  # noqa: E731
         eng.initialize(weights=_map(to_dev, w_cpu), vocoder_weights=_map(to_dev, v_cpu))
         if dev == "cpu":
@@ -335,7 +421,7 @@ def reduced_engine_parity(backend: str = "auto"):
         out[dev] = (chunks[0][0], np.stack([f for _a, fr in chunks for f in fr][:8]))
     (audio_g, a), (audio_c, b) = out["cuda"], out["cpu"]
     n = min(len(a), len(b))
-    res = {"backend": backend, "first_frame_equal": bool((a[0] == b[0]).all()),
+    res = {"backend": backend, **quant, "first_frame_equal": bool((a[0] == b[0]).all()),
            "first_chunk_audio_max_abs": float(np.abs(audio_g - audio_c).max()),
            "frames": n, "codes_equal_frac_8_frames": float((a[:n] == b[:n]).mean())}
     assert res["first_frame_equal"] and res["first_chunk_audio_max_abs"] < 1e-3, (res, a, b)
@@ -435,7 +521,7 @@ def compare_generate(cfg, w, state, first: int, starts, label: str):
     from qwen_tts_tpu_torch.ops.generate_kernel import generate_megakernel
 
     pos0 = state.position
-    loop_state = state._replace(k_cache=state.k_cache.clone(), v_cache=state.v_cache.clone())
+    loop_state = _clone(state)
     before = generate_megakernel.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -450,10 +536,11 @@ def compare_generate(cfg, w, state, first: int, starts, label: str):
                      .abs().max()),
                float((state.v_cache[:, :, cols].float() - loop_state.v_cache[:, :, cols].float())
                      .abs().max()))
+    caches = [(a, b) for a, b in zip(state[:2] + state[3:], loop_state[:2] + loop_state[3:])
+              if a is not None]
     res = {"case": label, "pos0": pos0, "steps": GEN_STEPS, "c_calls": calls,
            "tokens_equal": bool(torch.equal(toks.long(), loop_toks)),
-           "cache_equal": bool(torch.equal(state.k_cache, loop_state.k_cache)
-                               and torch.equal(state.v_cache, loop_state.v_cache)),
+           "cache_equal": all(torch.equal(a, b) for a, b in caches),
            "cache_cols_max_abs": diff, "position": state.position,
            "first_tokens": toks[:8].tolist()}
     print("generate vs decode-step loop", json.dumps(res))
@@ -499,9 +586,10 @@ def time_attention(cfg, ctx, card):
     return out
 
 
-def time_generate(cfg, w, card):
-    """Phase 8: one N-step call (N = 64) beside its plain version, and
-    N = 256 from position 0 as tokens/s beside the decode-step host loop."""
+def time_generate(cfg, w, card, kv8: bool = False, label: str = "bf16"):
+    """Phases 8 and 12: one N-step call (N = 64) beside its plain version,
+    and N = 256 from position 0 as tokens/s beside the decode-step host
+    loop, with the device's busy time per step."""
     import torch
     from qwen_tts_tpu_torch.core.config import CODEC_BOS
     from qwen_tts_tpu_torch.models.decoder import init_state
@@ -510,7 +598,7 @@ def time_generate(cfg, w, card):
         generate_megakernel_reference,
     )
 
-    state = init_state(cfg, "cuda")
+    state = init_state(cfg, "cuda", torch.int8 if kv8 else torch.bfloat16)
     starts = [0] * len(cfg.mrope_section)
     first = torch.full((1,), CODEC_BOS, dtype=torch.int32, device="cuda")
     kernel = lambda: generate_megakernel(cfg, w, state, first, GEN_STEPS, starts)  # noqa: E731
@@ -520,22 +608,23 @@ def time_generate(cfg, w, card):
     k_ms, p_ms = _interleaved(kernel, plain, 3, 1, warmup=1, plain_warmup=0)
     nbytes = flops = 0
     for n in range(GEN_STEPS):
-        b, f = step_cost(cfg, w, n, True)
+        b, f = step_cost(cfg, w, n, True, kv8)
         nbytes, flops = nbytes + b, flops + f
     b_ms, b_by = _bound_ms(nbytes, flops)
-    print(f"generate, {GEN_STEPS} steps from position 0: kernel {k_ms:.4f} ms, plain "
-          f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) {card}")
+    print(f"generate [{label}], {GEN_STEPS} steps from position 0: kernel {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) {card}")
 
     n = GEN_TIMED_STEPS
     call = lambda: generate_megakernel(cfg, w, state, first, n, starts)  # noqa: E731
     loop = lambda: generate_loop(cfg, w, state, CODEC_BOS, n, starts)  # noqa: E731
     g_ms, l_ms = _interleaved(call, loop, 2, 2, warmup=1)
     busy_ms = _device_ms(call, 1)
-    nbytes = sum(step_cost(cfg, w, i, True)[0] for i in range(n))
+    nbytes = sum(step_cost(cfg, w, i, True, kv8)[0] for i in range(n))
     b_ms256 = nbytes / HBM_BYTES_PER_S * 1e3
     tok_s = {"generate_tok_s": n / g_ms * 1e3, "decode_step_loop_tok_s": n / l_ms * 1e3,
-             "bound_tok_s": n / b_ms256 * 1e3, "device_busy_ms_per_step": busy_ms / n}
-    print(f"generate, {n} steps from position 0: {g_ms / n:.4f} ms/step = "
+             "bound_tok_s": n / b_ms256 * 1e3, "device_busy_ms_per_step": busy_ms / n,
+             "bound_ms_per_step": b_ms256 / n}
+    print(f"generate [{label}], {n} steps from position 0: {g_ms / n:.4f} ms/step = "
           f"{tok_s['generate_tok_s']:.1f} tok/s (device busy {busy_ms / n:.4f} ms/step); "
           f"decode-step host loop {l_ms / n:.4f} ms/step = "
           f"{tok_s['decode_step_loop_tok_s']:.1f} tok/s; weight-bandwidth bound "
@@ -561,7 +650,7 @@ def main() -> int:
     from qwen_tts_tpu_torch.core.config import CODEC_BOS
     from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
     from qwen_tts_tpu_torch.models.decoder import init_state
-    from qwen_tts_tpu_torch.ops import attention, cuda_lib, decode_step
+    from qwen_tts_tpu_torch.ops import attention, cuda_lib, decode_step, generate_kernel
 
     # ── phase 1: card, versions, build ──
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -701,7 +790,110 @@ def main() -> int:
     gen_t = time_generate(mc.talker, tw, card)
 
     _phase_done(8)
-    assert all(math.isfinite(e) for e in errs + [attn_err, gen_err])
+
+    # ── phase 9: the quantized forms of the decode step vs plain at full width ──
+    qweights, qerr, qctx = {}, {}, {}
+    for label, (fn, kw) in _quant_forms().items():
+        qt, qc = fn(tw, **kw), fn(cw, quant_head=False, **kw)
+        qweights[label], e = (qt, qc), []
+        for kv8 in (False, True):
+            for pos in (0, 1, 300):
+                res, c = compare_kernel(mc.talker, qt, pos, True, gen, mrope=True, kv8=kv8,
+                                        quant_bar=True)
+                print(f"talker [{label}] kernel vs plain", json.dumps(res))
+                e.append(max(res["normed_max_abs"], res["logits_max_abs"]))
+                if kv8:
+                    qctx[(label, "talker")] = c
+        for pos in (2, 14):
+            res, c = compare_kernel(mc.code_predictor, qc, pos, False, gen, mrope=False,
+                                    quant_bar=True)
+            print(f"code-predictor [{label}] kernel vs plain", json.dumps(res))
+            e.append(res["normed_max_abs"])
+            qctx[(label, "cp")] = c
+        qerr[label] = max(e)
+
+    _phase_done(9)
+
+    # ── phase 10: the quantized main path, TTSConfig(quantize=..., kv_cache="int8") ──
+    qeng = TTSEngine(TTSConfig(quantize="int8", kv_cache="int8"))
+    qeng.initialize()
+    run_requests(qeng)                             # warm
+    _reset_launches()
+    m0 = qeng.get_metrics()
+    qstats = run_requests(qeng)
+    qlaunch = {"int8": decode_step.megakernel_forward.launches}
+    m1 = qeng.get_metrics()
+    steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
+    print(f"int8+kv8 path: {qlaunch['int8']} decode-step launches, {steps} decode steps")
+    assert qlaunch["int8"] == steps > 0, (qlaunch, steps)
+    assert qeng._talker_state.k_cache.dtype == torch.int8
+    del qeng
+    parity_q = reduced_engine_parity("mega", quantize="int8", kv_cache="int8")
+    print("reduced model int8+kv8, GPU kernel vs CPU plain engine:", json.dumps(parity_q))
+    for q in ("int4", "mixed"):
+        e = TTSEngine(TTSConfig(quantize=q, kv_cache="int8"))
+        e.initialize()
+        _reset_launches()
+        m0 = e.get_metrics()
+        ttfc, wall, chunks = stream(e, TEXTS[0])
+        qlaunch[q] = decode_step.megakernel_forward.launches
+        m1 = e.get_metrics()
+        audio = check_stream(e, chunks)
+        steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
+        print(f"{q}+kv8 path: {qlaunch[q]} decode-step launches, {steps} decode steps; "
+              f"{len(chunks)} chunks, {len(audio) / e.sample_rate:.2f} s audio, TTFC "
+              f"{ttfc * 1e3:.2f} ms, RTF {wall / (len(audio) / e.sample_rate):.4f} {card}")
+        assert qlaunch[q] == steps > 0, (q, qlaunch, steps)
+        del e
+
+    _phase_done(10)
+
+    # ── phase 11: N-step generation on the quantized forms + kv8 vs the step loop ──
+    glaunch, gerr = {}, {}
+    for label in GEN_FORMS:
+        qt = qweights[label][0]
+        _reset_launches()
+        g0 = compare_generate(mc.talker, qt, init_state(mc.talker, "cuda", torch.int8),
+                              CODEC_BOS, starts0, f"[{label}+kv8] from CODEC_BOS at 0")
+        glaunch[label] = generate_kernel.generate_megakernel.launches
+        g1 = compare_generate(mc.talker, qt, random_state(mc.talker, 300, gen, kv8=True),
+                              int(g0["first_tokens"][-1]), [300 + d for d in (0, 5, 9)],
+                              f"[{label}+kv8] from a random int8 cache at 300, deltas (0,5,9)")
+        gerr[label] = max(g0["cache_cols_max_abs"], g1["cache_cols_max_abs"])
+
+    _phase_done(11)
+
+    # ── phase 12: timings of the quantized forms ──
+    qt_t = {}
+    for label in _quant_forms():
+        qt, qc = qweights[label]
+        tctx, cctx = qctx[(label, "talker")], qctx[(label, "cp")]
+        k_ms, p_ms = time_steps(mc.talker, qt, tctx, True, 50)
+        sk, _, embed, _, _, mp = tctx
+        d_ms = _device_ms(lambda: decode_step.megakernel_forward(
+            mc.talker, qt, sk, embed, mrope_pos=mp), 20)
+        ck_ms, cp_ms = time_steps(mc.code_predictor, qc, cctx, False, 100)
+        b_ms, b_by = _bound_ms(*step_cost(mc.talker, qt, 300, True, kv8=True))
+        cb_ms, _ = _bound_ms(*step_cost(mc.code_predictor, qc, 14, False))
+        qt_t[label] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "cp_ms": ck_ms, "cp_plain_ms": cp_ms, "cp_bound_ms": cb_ms}
+        print(f"talker step [{label}+kv8] (pos 300): kernel {k_ms:.4f} ms (device {d_ms:.4f} "
+              f"ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); code-predictor step "
+              f"[{label}] (pos 14): kernel {ck_ms:.4f} ms, plain {cp_ms:.4f} ms, bound "
+              f"{cb_ms:.4f} ms {card}")
+    qgen_t = {label: time_generate(mc.talker, qweights[label][0], card, kv8=True,
+                                   label=f"{label}+kv8") for label in GEN_FORMS}
+    for s_ in qstats:
+        print("request [int8+kv8]", json.dumps(s_), card)
+    streams = [s_ for s_ in qstats if "ttfc_ms" in s_]
+    qttfc = sorted(s_["ttfc_ms"] for s_ in streams)
+    qrtf = sum(s_["wall_s"] for s_ in streams) / sum(s_["audio_s"] for s_ in streams)
+    print(f"int8+kv8 slice: TTFC median {qttfc[len(qttfc) // 2]:.2f} ms (max "
+          f"{qttfc[-1]:.2f}), streaming RTF {qrtf:.4f} {card}")
+
+    _phase_done(12)
+    assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
+                                                 *gerr.values()])
     a300 = attn_t[300]
     print(json.dumps({"kernels": [
         {"name": "decode_step", "route": "cuda",
@@ -728,6 +920,26 @@ def main() -> int:
          "decode_step_loop_tok_s_256": gen_t["decode_step_loop_tok_s"],
          "bound_tok_s_256": gen_t["bound_tok_s"],
          "device_busy_ms_per_step_256": gen_t["device_busy_ms_per_step"]},
+        *[{"name": f"decode_step[{q}+kv8]", "route": "cuda",
+           "source": "qwen_tts_tpu_torch/csrc/decode_layer.cuh",
+           "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
+           "launches": qlaunch[q], "max_abs_err": qerr[q], "library_ms": None,
+           **qt_t[q], **({"g128_max_abs_err": qerr["int8g128"],
+                          **{f"g128_{k}": v for k, v in qt_t["int8g128"].items()}}
+                         if q == "int8" else {})}
+          for q in ("int8", "int4", "mixed")],
+        *[{"name": f"generate[{q}+kv8]", "route": "cuda",
+           "source": "qwen_tts_tpu_torch/csrc/generate.cu",
+           "replaces": "qwen_tts_tpu/ops/generate_kernel.py:52",
+           "launches": glaunch[q], "max_abs_err": gerr[q], "ms": qgen_t[q]["ms"],
+           "plain_ms": qgen_t[q]["plain_ms"], "bound_ms": qgen_t[q]["bound_ms"],
+           "bound_by": qgen_t[q]["bound_by"], "library_ms": None, "steps": GEN_STEPS,
+           "device_ms": qgen_t[q]["device_busy_ms_per_step"] * GEN_TIMED_STEPS,
+           "tok_s_256": qgen_t[q]["generate_tok_s"],
+           "bound_tok_s_256": qgen_t[q]["bound_tok_s"],
+           "device_busy_ms_per_step_256": qgen_t[q]["device_busy_ms_per_step"],
+           "bound_ms_per_step_256": qgen_t[q]["bound_ms_per_step"]}
+          for q in GEN_FORMS],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -145,6 +145,207 @@ def init_tts_weights(seed: int, cfg: TTSModelConfig, device="cuda") -> TTSWeight
     return TTSWeights(talker=talker, code_predictor=cp, text_projection=text)
 
 
+# ── weight-only quantization (counterpart of core/weights.py:327-659) ───────
+#
+# int8: symmetric, one f32 scale per output channel ([L, 1, out]) or per
+# group of input rows ([L, in/G, out]). int4-g128: group-wise, two values
+# nibble-packed per int8 byte in the halves layout (byte row r holds input
+# row r in the low nibble and row r + in/2 in the high one). Mixed: int8
+# attention matrices with int4-g128 MLP matrices in the int4 containers;
+# the decode-step kernel and the dense path pick the form of each matrix by
+# its shape. The LM head may be int8 with a [1, V] scale (`lm_head_s`).
+# Scales are max(absmax, 1e-8) / 127 (or / 7) in f32 and values are
+# round-half-even of the value divided by the scale, as in the JAX package,
+# so the two quantize the same weights to the same bits.
+
+INT4_GROUP = 128
+
+
+class QuantLayerWeights(NamedTuple):
+    """int8 matrices `[L, in, out]` with f32 scales `[L, ng, out]`."""
+
+    input_norm: torch.Tensor   # [L, H] bf16
+    q_norm: torch.Tensor       # [L, D] bf16
+    k_norm: torch.Tensor       # [L, D] bf16
+    post_norm: torch.Tensor    # [L, H] bf16
+    wqkv_q: torch.Tensor       # [L, H, Q+2KV] int8
+    wqkv_s: torch.Tensor       # [L, ng, Q+2KV] f32
+    wo_q: torch.Tensor         # [L, Q, H] int8
+    wo_s: torch.Tensor         # [L, ng, H] f32
+    w_gate_up_q: torch.Tensor  # [L, H, 2I] int8
+    w_gate_up_s: torch.Tensor  # [L, ng, 2I] f32
+    w_down_q: torch.Tensor     # [L, I, H] int8
+    w_down_s: torch.Tensor     # [L, ng, H] f32
+
+
+class Quant4LayerWeights(QuantLayerWeights):
+    """The int4-g128 and mixed form: a packed matrix is int8 `[L, in/2,
+    out]` with scales `[L, in/128, out]`; an int8 one as above."""
+
+    __slots__ = ()
+
+
+class QuantDecoderWeights(NamedTuple):
+    layers: QuantLayerWeights
+    final_norm: torch.Tensor
+    embed: torch.Tensor        # bf16
+    lm_head: torch.Tensor      # bf16 [H, V], or int8 when lm_head_s is set
+    rope: RopeTable
+    lm_head_s: torch.Tensor | None = None   # [1, V] f32
+
+
+class Quant4DecoderWeights(QuantDecoderWeights):
+    __slots__ = ()
+
+
+def _absmax_scale(wf: torch.Tensor, dim: int, qmax: float) -> torch.Tensor:
+    return wf.abs().amax(dim=dim, keepdim=True).clamp_min(1e-8) / qmax
+
+
+def _quant_mat(w: torch.Tensor, group_size: int | None = None):
+    """[L, in, out] bf16 → (int8 [L, in, out], f32 scales [L, 1, out], or
+    [L, in/G, out] for `group_size` G)."""
+    if group_size is None:
+        wf = w.float()
+        scale = _absmax_scale(wf, 1, 127.0)
+        return torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8), scale
+    L, n_in, n_out = w.shape
+    if n_in % group_size:
+        raise ValueError(f"in dim {n_in} not divisible by group {group_size}")
+    wf = w.float().reshape(L, n_in // group_size, group_size, n_out)
+    scale = _absmax_scale(wf, 2, 127.0)
+    q = torch.clamp(torch.round(wf / scale), -127, 127)
+    return q.reshape(L, n_in, n_out).to(torch.int8), scale[:, :, 0, :]
+
+
+def quantize_lm_head(lm_head: torch.Tensor):
+    """[H, V] bf16 → (int8 [H, V], f32 [1, V]), per output channel."""
+    q, s = _quant_mat(lm_head[None], None)
+    return q[0], s[0]
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """Integers in [-8, 7], [L, in, out] → packed int8 [L, in/2, out]:
+    byte row r = (q[r] & 0xF) | (q[r + in/2] << 4)."""
+    half = q.shape[1] // 2
+    qi = q.to(torch.int32)
+    lo, hi = qi[:, :half] & 0xF, qi[:, half:] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed int8 [..., in/2, out] → (low, high) sign-extended int32 halves."""
+    w32 = p.to(torch.int32)
+    return ((w32 & 0xF) ^ 8) - 8, w32 >> 4
+
+
+def _quant_mat_int4(w: torch.Tensor, group_size: int = INT4_GROUP):
+    """[L, in, out] bf16 → (packed int8 [L, in/2, out], f32 [L, in/G, out])."""
+    L, n_in, n_out = w.shape
+    if n_in % group_size or n_in % 2:
+        raise ValueError(f"in dim {n_in} not divisible by group {group_size}")
+    ng = n_in // group_size
+    if ng % 2:   # each packed half must hold whole groups
+        raise ValueError(f"group {group_size} gives {ng} group(s) over in dim {n_in}; "
+                         f"the int4 halves packing needs an even group count")
+    wf = w.float().reshape(L, ng, group_size, n_out)
+    scale = _absmax_scale(wf, 2, 7.0)
+    q = torch.clamp(torch.round(wf / scale), -7, 7).reshape(L, n_in, n_out)
+    return pack_int4(q), scale[:, :, 0, :]
+
+
+def _quantized(cls, w: DecoderWeights, mats, quant_head: bool):
+    lw = w.layers
+    fields = {}
+    for name, quant in zip(("wqkv", "wo", "w_gate_up", "w_down"), mats):
+        fields[f"{name}_q"], fields[f"{name}_s"] = quant(getattr(lw, name))
+    head, head_s = quantize_lm_head(w.lm_head) if quant_head else (w.lm_head, None)
+    layer_cls = Quant4LayerWeights if cls is Quant4DecoderWeights else QuantLayerWeights
+    return cls(layers=layer_cls(input_norm=lw.input_norm, q_norm=lw.q_norm,
+                                k_norm=lw.k_norm, post_norm=lw.post_norm, **fields),
+               final_norm=w.final_norm, embed=w.embed, lm_head=head, rope=w.rope,
+               lm_head_s=head_s)
+
+
+def quantize_decoder_weights(w: DecoderWeights, group_size: int | None = None,
+                             quant_head: bool = True) -> QuantDecoderWeights:
+    """bf16 decoder → int8 weight-only form (per channel, or per group)."""
+    q = lambda m: _quant_mat(m, group_size)  # noqa: E731
+    return _quantized(QuantDecoderWeights, w, (q,) * 4, quant_head)
+
+
+def quantize_decoder_weights_int4(w: DecoderWeights, group_size: int = INT4_GROUP,
+                                  quant_head: bool = True) -> Quant4DecoderWeights:
+    """bf16 decoder → int4 group-wise form (the head stays int8)."""
+    q = lambda m: _quant_mat_int4(m, group_size)  # noqa: E731
+    return _quantized(Quant4DecoderWeights, w, (q,) * 4, quant_head)
+
+
+def quantize_decoder_weights_mixed(w: DecoderWeights, group_size: int = INT4_GROUP,
+                                   quant_head: bool = True) -> Quant4DecoderWeights:
+    """bf16 decoder → int8 per-channel attention + int4-g128 MLP."""
+    q4 = lambda m: _quant_mat_int4(m, group_size)  # noqa: E731
+    return _quantized(Quant4DecoderWeights, w, (_quant_mat, _quant_mat, q4, q4), quant_head)
+
+
+QUANTIZERS = {"int8": quantize_decoder_weights, "int4": quantize_decoder_weights_int4,
+              "mixed": quantize_decoder_weights_mixed}
+
+
+def is_packed(qm: torch.Tensor, n_in: int) -> bool:
+    """True when a quantized matrix with `n_in` input rows is nibble-packed."""
+    return qm.shape[-2] * 2 == n_in
+
+
+def dequant_mat_slice(qm: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """One layer's int8 matrix [in, out] + scales [ng, out] → bf16 [in, out]."""
+    n_in, n_out = qm.shape
+    ng = s.shape[0]
+    if ng == 1:
+        return (qm.float() * s).to(torch.bfloat16)
+    wf = qm.float().reshape(ng, n_in // ng, n_out)
+    return (wf * s[:, None, :]).reshape(n_in, n_out).to(torch.bfloat16)
+
+
+def dequant_mat_slice_int4(qm: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """One layer's packed int4 matrix [in/2, out] + scales [ng, out] → bf16 [in, out]."""
+    n_in, n_out = qm.shape[0] * 2, qm.shape[1]
+    ng = s.shape[0]
+    wf = torch.cat(unpack_int4(qm), dim=0).float()
+    return (wf.reshape(ng, n_in // ng, n_out) * s[:, None, :]).reshape(
+        n_in, n_out).to(torch.bfloat16)
+
+
+def dequant_mat(qm: torch.Tensor, s: torch.Tensor, n_in: int) -> torch.Tensor:
+    """One layer's matrix of either form (picked by shape) → bf16 [n_in, out]."""
+    return (dequant_mat_slice_int4 if is_packed(qm, n_in) else dequant_mat_slice)(qm, s)
+
+
+def _dequantized(q: QuantLayerWeights, packed: tuple[bool, ...]) -> LayerWeights:
+    mats = {}
+    for name, pk in zip(("wqkv", "wo", "w_gate_up", "w_down"), packed):
+        qm, s = getattr(q, f"{name}_q"), getattr(q, f"{name}_s")
+        dq = dequant_mat_slice_int4 if pk else dequant_mat_slice
+        mats[name] = torch.stack([dq(qm[i], s[i]) for i in range(qm.shape[0])])
+    return LayerWeights(input_norm=q.input_norm, q_norm=q.q_norm, k_norm=q.k_norm,
+                        post_norm=q.post_norm, **mats)
+
+
+def dequantize_layer_weights(q: QuantLayerWeights) -> LayerWeights:
+    """int8 layers (per channel or per group) → bf16 (tests)."""
+    return _dequantized(q, (False,) * 4)
+
+
+def dequantize_layer_weights_int4(q: Quant4LayerWeights) -> LayerWeights:
+    """int4-g128 layers → bf16 (tests)."""
+    return _dequantized(q, (True,) * 4)
+
+
+def dequantize_layer_weights_mixed(q: Quant4LayerWeights) -> LayerWeights:
+    """Mixed layers (int8 attention, int4 MLP) → bf16 (tests)."""
+    return _dequantized(q, (False, False, True, True))
+
+
 # ── conversion from the JAX package ─────────────────────────────────────────
 
 
@@ -159,28 +360,29 @@ def to_torch(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-_NESTED = {
-    "talker": DecoderWeights,
-    "decoder": DecoderWeights,
-    "code_predictor": CodePredictorWeights,
-    "text_projection": TextProjectionWeights,
-    "layers": LayerWeights,
-    "rope": RopeTable,
-}
+_TUPLES = {cls.__name__: cls for cls in (
+    TTSWeights, DecoderWeights, CodePredictorWeights, TextProjectionWeights,
+    LayerWeights, RopeTable, QuantLayerWeights, Quant4LayerWeights,
+    QuantDecoderWeights, Quant4DecoderWeights)}
 
 
 def convert_tuple(cls, tree, device="cuda"):
     """Build `cls` from an object with the same field names (a JAX
-    NamedTuple of arrays), recursing into the nested weight tuples."""
+    NamedTuple of arrays), recursing into nested tuples: each becomes the
+    port's tuple of the same class name, so JAX's quantized trees carry
+    across as the port's quantized containers (int8 leaves as int8)."""
     out = {}
     for name in cls._fields:
         leaf = getattr(tree, name)
-        sub = _NESTED.get(name)
-        out[name] = (convert_tuple(sub, leaf, device) if sub is not None
-                     else to_torch(leaf, device))
+        if leaf is None:
+            out[name] = None
+        elif hasattr(leaf, "_fields"):
+            out[name] = convert_tuple(_TUPLES[type(leaf).__name__], leaf, device)
+        else:
+            out[name] = to_torch(leaf, device)
     return cls(**out)
 
 
 def from_jax(tree, device="cuda") -> TTSWeights:
-    """The JAX package's `TTSWeights` (bf16/f32 leaves) → the port's."""
+    """The JAX package's `TTSWeights` (bf16/f32/int8 leaves) → the port's."""
     return convert_tuple(TTSWeights, tree, device)

@@ -1,16 +1,18 @@
-// N greedy bf16 decode steps of the talker in one call, with the next
-// token fed back on the device, for sm_90a.
+// N greedy decode steps of the talker in one call, with the next token fed
+// back on the device, for sm_90a.
 //
 // Replaces the Pallas TPU kernel qwen_tts_tpu/ops/generate_kernel.py
 // ::_gen_kernel (:52; pallas_call :709 in _generate_impl :514, wrapper
-// generate_megakernel :769) for bf16 weights and a bf16 KV cache. Per step
+// generate_megakernel :769) in all its forms: bf16, int8, int4-g128 and
+// mixed weights, and a bf16 or int8 KV cache. Per step
 // n, at cache row pos0 + n:
 //   1. rope_row builds the step's cos/sin row from the tables: section s of
 //      the rotary frequency indices reads row pos0 + n + delta[s] (M-RoPE;
 //      equal deltas give standard RoPE);
 //   2. the decode step of decode_layer.cuh (the same code as
 //      qtts_decode_step, so the same bits): L layers, the new K/V column
-//      written into the cache at its row, final RMSNorm, LM head;
+//      (and, for an int8 cache, its row scales) written into the cache at
+//      its row, final RMSNorm, LM head (scaled logits for an int8 head);
 //   3. argmax_embed takes the argmax of the V logits (lowest index wins a
 //      tie, as torch.argmax and jnp.argmax do), writes tokens[n] and loads
 //      embed[token] as the f32 input of step n + 1.
@@ -20,12 +22,17 @@
 // design of the reference CUDA generate_nosync: N back-to-back steps with
 // on-device token feedback). The Pallas kernel's VMEM tail ring, aligned
 // flushes and one-hot embedding gather are TPU lowering rules and are not
-// carried over: the cache row is written at its position directly.
+// carried over: the cache row is written at its position directly. The
+// in-flight token therefore joins its own attention as the f32 column of
+// the decode step, where the Pallas kernel reads it back from its ring in
+// the cache's dtype (generate_kernel.py:278-297, 389-421): under an int8
+// cache the two differ by one int8 rounding of that column.
 //
-// What bounds it on an H100: weight bytes, N x 0.887 GB for the talker.
-// Step n + 1 needs step n's token, and 0.887 GB of weights do not fit the
-// 50 MB L2, so every step streams them again: N x 0.265 ms at 3.35 TB/s,
-// at most ~3,770 tokens/s. Fusing the N steps into one persistent launch
+// What bounds it on an H100: weight bytes, N x 0.887 GB for the bf16
+// talker (int8 ~0.445 GB, int4 ~0.237 GB). Step n + 1 needs step n's
+// token, and the weights do not fit the 50 MB L2, so every step streams
+// them again: N x 0.265 ms at 3.35 TB/s for bf16 (~3,770 tokens/s at
+// most), N x 0.133 ms for int8. Fusing the N steps into one persistent launch
 // is later work; this version enqueues ~230 small launches a step.
 
 #include "decode_layer.cuh"
@@ -149,25 +156,20 @@ long long qtts_generate_workspace_bytes(int H, int I, int HQ, int KVH, int D, in
   return (long long)gen_workspace_bytes(H, I, HQ, KVH, D, V, nullptr, nullptr);
 }
 
-// num_steps greedy steps from first_token (int32 [1], device) at cache
-// rows pos0 .. pos0 + num_steps - 1. Weights as qtts_decode_step, plus the
-// bf16 embedding table [V, H] and the f32 rope tables [rope_rows, D/2].
-// tokens: int32 [num_steps], device. sec / delta: host arrays of n_sec
-// ints, the interleaved M-RoPE sections and their position offsets
-// (n_sec <= 4; n_sec <= 1 for standard RoPE). Returns 0 or the first
-// CUDA error; launches on `stream` and does not synchronise.
-int qtts_generate(const void* first_token, const void* embed, const void* input_norm,
-                  const void* wqkv, const void* q_norm, const void* k_norm,
-                  const void* wo, const void* post_norm, const void* w_gate_up,
-                  const void* w_down, const void* final_norm, const void* lm_head,
-                  const void* cos_tab, const void* sin_tab, int rope_rows,
-                  void* k_cache, void* v_cache, void* tokens, void* workspace,
-                  int L, int H, int I, int HQ, int KVH, int D, int S, int V,
-                  int pos0, int num_steps, float eps, int n_sec, const int* sec,
+// num_steps greedy steps of the decoder `dec` (which must have an LM head)
+// from first_token (int32 [1], device) at cache rows pos0 .. pos0 +
+// num_steps - 1, with the bf16 embedding table [V, H] and the f32 rope
+// tables [rope_rows, D/2]. tokens: int32 [num_steps], device. sec / delta:
+// host arrays of n_sec ints, the interleaved M-RoPE sections and their
+// position offsets (n_sec <= 4; n_sec <= 1 for standard RoPE). Returns 0
+// or the first CUDA error; launches on `stream` and does not synchronise.
+int qtts_generate(const QttsDecoder* dec, const void* first_token, const void* embed,
+                  const void* cos_tab, const void* sin_tab, int rope_rows, void* tokens,
+                  void* workspace, int pos0, int num_steps, int n_sec, const int* sec,
                   const int* delta, void* stream) {
-  const StepDims dims{L, H, I, HQ, KVH, D, S, V, eps};
-  if (num_steps <= 0 || !dims_ok(dims, pos0) || pos0 + num_steps > S ||
-      n_sec < 0 || n_sec > kMaxSections || lm_head == nullptr)
+  const QttsDecoder& d = *dec;
+  if (num_steps <= 0 || !decoder_ok(d, pos0) || pos0 + num_steps > d.S || n_sec < 0 ||
+      n_sec > kMaxSections || d.lm_head.w == nullptr)
     return (int)cudaErrorInvalidValue;
   RopeSpec rs{n_sec > 1 ? n_sec : 1, {0, 0, 0, 0}, {0, 0, 0, 0}};
   for (int s = 0; s < n_sec && n_sec > 1; ++s) {
@@ -180,29 +182,22 @@ int qtts_generate(const void* first_token, const void* embed, const void* input_
 
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   GenWorkspace ws;
-  gen_workspace_bytes(H, I, HQ, KVH, D, V, &ws, reinterpret_cast<char*>(workspace));
-  const StepWeights w{
-      reinterpret_cast<const bf16*>(input_norm), reinterpret_cast<const bf16*>(wqkv),
-      reinterpret_cast<const bf16*>(q_norm),     reinterpret_cast<const bf16*>(k_norm),
-      reinterpret_cast<const bf16*>(wo),         reinterpret_cast<const bf16*>(post_norm),
-      reinterpret_cast<const bf16*>(w_gate_up),  reinterpret_cast<const bf16*>(w_down),
-      reinterpret_cast<const bf16*>(final_norm), reinterpret_cast<const bf16*>(lm_head)};
+  gen_workspace_bytes(d.H, d.I, d.HQ, d.KVH, d.D, d.V, &ws,
+                      reinterpret_cast<char*>(workspace));
   const bf16* emb = reinterpret_cast<const bf16*>(embed);
   int* toks = reinterpret_cast<int*>(tokens);
-  const int d2 = D / 2;
+  const int d2 = d.D / 2;
 
-  embed_row<<<1, 256, 0, st>>>(emb, reinterpret_cast<const int*>(first_token), H, ws.x);
+  embed_row<<<1, 256, 0, st>>>(emb, reinterpret_cast<const int*>(first_token), d.H, ws.x);
   for (int n = 0; n < num_steps; ++n) {
     const int pos = pos0 + n;
     rope_row<<<1, d2, 0, st>>>(reinterpret_cast<const float*>(cos_tab),
                                reinterpret_cast<const float*>(sin_tab), d2, pos, rs,
                                ws.rope, ws.rope + d2);
-    const int err = enqueue_step(w, dims, ws.x, ws.rope, ws.rope + d2,
-                                 reinterpret_cast<bf16*>(k_cache),
-                                 reinterpret_cast<bf16*>(v_cache), ws.normed, ws.logits,
+    const int err = enqueue_step(d, ws.x, ws.rope, ws.rope + d2, ws.normed, ws.logits,
                                  ws.step, pos, st);
     if (err != 0) return err;
-    argmax_embed<<<1, kArgmaxThreads, 0, st>>>(ws.logits, V, emb, H, toks + n,
+    argmax_embed<<<1, kArgmaxThreads, 0, st>>>(ws.logits, d.V, emb, d.H, toks + n,
                                                n + 1 < num_steps ? ws.x : nullptr);
   }
   return (int)cudaGetLastError();

@@ -1,7 +1,10 @@
 """TTS engine: text → talker → code predictor → vocoder → streamed audio.
 
-Port of `qwen_tts_tpu/engine/tts_engine.py` for bf16 weights and KV cache,
-the "fast" vocoder and M-RoPE on, with the backends "auto" (the CUDA
+Port of `qwen_tts_tpu/engine/tts_engine.py` for the "fast" vocoder and
+M-RoPE on, with bf16 or weight-only quantized decoders (`quantize`: int8,
+int4-g128 or mixed talker; `cp_quantize` for the code predictor, whose 15
+heads and KV cache stay bf16) and a bf16 or int8 talker KV cache
+(`kv_cache`), and with the backends "auto" (the CUDA
 decode-step kernel on a GPU, the dense path on the CPU), "mega" (the
 decode-step kernel), "pallas" (dense layers with the CUDA decode-attention
 kernel in every single-token step; the name is the JAX package's) and
@@ -50,7 +53,7 @@ from ..core.config import (
     TTS_PAD,
     TTSModelConfig,
 )
-from ..core.weights import TTSWeights, init_tts_weights
+from ..core.weights import QUANTIZERS, TTSWeights, init_tts_weights
 from ..models.decoder import init_state
 from ..models.text_projection import embed_text_ids
 from ..ops.sampling import gumbel_noise
@@ -95,17 +98,30 @@ class TTSConfig:
     max_seq_len: int = 8192               # talker KV-cache length
     vocoder_backend: str = "fast"
     backend: str = "auto"                 # auto | dense | pallas | mega
+    # Weight-only quantization of the talker: False (bf16), True or "int8"
+    # (per channel, + int8 LM head), "int4" (group-128, int8 head), "mixed"
+    # (int8 attention + int4-g128 MLP). The code predictor then takes
+    # `cp_quantize` ("int8" | "int4" | "mixed"); its heads stay bf16.
     quantize: bool | str = False
-    kv_cache: str = "bf16"
+    kv_cache: str = "bf16"                # talker KV cache: "bf16" | "int8"
+    cp_quantize: str = "int8"
+
+
+def _quant_mode(cfg: TTSConfig):
+    """The talker's quantizer name, or False; raises on an unknown knob."""
+    mode = "int8" if cfg.quantize is True else cfg.quantize
+    if mode not in (False, *QUANTIZERS):
+        raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
+    if cfg.kv_cache not in ("bf16", "int8"):
+        raise ValueError(f"unknown kv_cache {cfg.kv_cache!r}")
+    if cfg.cp_quantize not in QUANTIZERS:
+        raise ValueError(f"unknown cp_quantize mode {cfg.cp_quantize!r}")
+    return mode
 
 
 def _unsupported(cfg: TTSConfig) -> str | None:
     if cfg.model_path or cfg.vocoder_path:
         return "checkpoint loading (ROADMAP A1-ckpt)"
-    if cfg.quantize:
-        return f"quantize={cfg.quantize!r} (ROADMAP A10, B1-quant)"
-    if cfg.kv_cache != "bf16":
-        return f"kv_cache={cfg.kv_cache!r} (ROADMAP A10, B1-quant)"
     if cfg.vocoder_backend != "fast":
         return f"vocoder_backend={cfg.vocoder_backend!r} (ROADMAP A11)"
     return None
@@ -122,6 +138,8 @@ class TTSEngine:
             raise NotImplementedError(f"not ported yet: {missing}")
         if self.config.backend not in ("auto", "dense", "pallas", "mega"):
             raise ValueError(f"unknown backend {self.config.backend!r}")
+        self._quant_mode = _quant_mode(self.config)
+        self._kv_dtype = torch.int8 if self.config.kv_cache == "int8" else torch.bfloat16
         mc = model_config or TTSModelConfig()
         talker = dataclasses.replace(mc.talker, max_seq_len=self.config.max_seq_len)
         if talker.mrope_section is None:
@@ -137,9 +155,11 @@ class TTSEngine:
 
     def initialize(self, weights: Optional[TTSWeights] = None,
                    vocoder_weights: Optional[VocoderWeights] = None):
-        """Weights (given, or random from `seed`), vocoder, constant
-        embeddings; on a GPU also builds the kernels, so no request pays
-        for nvcc. Raises on a CUDA device when the machine has none."""
+        """Weights (given, or random from `seed`; quantized here when
+        `quantize` is set, the bf16 decoder matrices dropped), vocoder,
+        constant embeddings; on a GPU also builds the kernels, so no
+        request pays for nvcc. Raises on a CUDA device when the machine
+        has none."""
         if self._initialized:
             return
         cfg, mc, dev = self.config, self.model_config, self.device
@@ -149,6 +169,12 @@ class TTSEngine:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.weights = weights if weights is not None else init_tts_weights(cfg.seed, mc, dev)
+        if self._quant_mode:
+            cp = self.weights.code_predictor
+            self.weights = self.weights._replace(
+                talker=QUANTIZERS[self._quant_mode](self.weights.talker),
+                code_predictor=cp._replace(decoder=QUANTIZERS[cfg.cp_quantize](
+                    cp.decoder, quant_head=False)))
         self.tokenizer = load_tokenizer(cfg.model_path)
 
         self.vocoder_weights = vocoder_weights
@@ -239,7 +265,7 @@ class TTSEngine:
         trailing = torch.zeros_like(content_embeds)
         trailing[:eos_pos] = content_embeds[1:eos_pos + 1]
         trailing[eos_pos] = self._tts_eos_embed
-        state = init_state(mc.talker, dev)
+        state = init_state(mc.talker, dev, self._kv_dtype)
         state, token, hidden = talker_prefill(
             mc.talker, self.weights.talker, state, prefill,
             attn_impl=self._attn_impl, mrope_deltas=self._mrope_deltas)

@@ -4,7 +4,9 @@ Port of `qwen_tts_tpu/models/code_predictor.py::cp_predict`: a 2-token dense
 prefill `[talker_hidden, embed(first_token)]`, then per group: head →
 sample → embed → one single-token step. The JAX scan also runs a step
 after the last group whose output nothing reads; the port skips it, so a
-frame costs 14 steps, not 15 (tests assert the codes are unchanged).
+frame costs 14 steps, not 15 (tests assert the codes are unchanged). The
+decoder may be quantized (the engine's `cp_quantize`); its KV cache and its
+15 heads stay bf16, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -30,13 +30,34 @@ build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas lines)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _I4 = ctypes.c_int * 4
+
+# Weight forms of one matrix (QttsMat::form in csrc/decode_layer.cuh).
+FORM_BF16, FORM_INT8, FORM_INT4 = 0, 1, 2
+
+
+class QttsMat(ctypes.Structure):
+    """One layer-stacked weight matrix: csrc/decode_layer.cuh::QttsMat."""
+    _fields_ = [("w", _P), ("s", _P), ("form", _I), ("ng", _I)]
+
+
+class QttsDecoder(ctypes.Structure):
+    """A decoder and its KV cache: csrc/decode_layer.cuh::QttsDecoder."""
+    _fields_ = ([(n, _P) for n in ("input_norm", "q_norm", "k_norm", "post_norm",
+                                   "final_norm")]
+                + [(n, QttsMat) for n in ("wqkv", "wo", "w_gate_up", "w_down", "lm_head")]
+                + [(n, _P) for n in ("k_cache", "v_cache", "k_scale", "v_scale")]
+                + [(n, _I) for n in ("L", "H", "I", "HQ", "KVH", "D", "S", "V")]
+                + [("eps", _F)])
+
+
+_DEC = ctypes.POINTER(QttsDecoder)
 _SIGNATURES = {
     "qtts_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
-    "qtts_decode_step": ([_P] * 18 + [_I] * 9 + [_F, _P], _I),
+    "qtts_decode_step": ([_DEC] + [_P] * 6 + [_I, _P], _I),
     "qtts_attention_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
     "qtts_decode_attention": ([_P] * 7 + [_I] * 7 + [_P], _I),
     "qtts_generate_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
-    "qtts_generate": ([_P] * 14 + [_I] + [_P] * 4 + [_I] * 10 + [_F, _I]
+    "qtts_generate": ([_DEC] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 3
                       + [ctypes.POINTER(ctypes.c_int)] * 2 + [_P], _I),
 }
 

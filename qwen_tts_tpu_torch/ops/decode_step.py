@@ -1,19 +1,22 @@
 """One fused decode step: the CUDA kernel, its plain version, and the wrapper.
 
 Port of `qwen_tts_tpu/ops/decode_step.py` (`megakernel_forward` :453, Pallas
-body `_megakernel` :98) for bf16 weights and a bf16 KV cache. One call runs
-one token through all L layers — RMSNorm, fused QKV, QK-RMSNorm, RoPE, the
-new K/V column written into the cache at `position`, online-softmax GQA over
-the cache prefix plus the in-flight column, O-proj, SwiGLU MLP — then the
-final RMSNorm and, optionally, the LM head. The same code serves the
-28-layer talker and the 5-layer code predictor.
+body `_megakernel` :98, weight forms `make_mms().mm_scaled` :45-95). One
+call runs one token through all L layers — RMSNorm, fused QKV, QK-RMSNorm,
+RoPE, the new K/V column written into the cache at `position`,
+online-softmax GQA over the cache prefix plus the in-flight column, O-proj,
+SwiGLU MLP — then the final RMSNorm and, optionally, the LM head. The same
+code serves the 28-layer talker and the 5-layer code predictor, with bf16,
+int8 (per channel or per 128-row group), int4-g128 or mixed weights
+(`core/weights.py`), the form picked per matrix, and a bf16 or int8 KV
+cache (`models/decoder.py::init_state`).
 
 `megakernel_forward` dispatches on where the tensors are: on the CPU it
 runs `megakernel_forward_reference` (plain PyTorch, the same rounding
-points); on a CUDA device it launches `csrc/decode_step.cu` through ctypes,
-or raises. The kernel is built with the port's other kernels by
-`ops/cuda_lib.py` at first use. `megakernel_forward.launches` counts
-kernel launches.
+points and the kernel's matrix product `mm_scaled`); on a CUDA device it
+launches `csrc/decode_step.cu` through ctypes, or raises. The kernel is
+built with the port's other kernels by `ops/cuda_lib.py` at first use.
+`megakernel_forward.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,14 +26,56 @@ from typing import Sequence
 import torch
 
 from ..core.config import DecoderConfig
-from ..core.weights import DecoderWeights
+from ..core.weights import DecoderWeights, is_packed, unpack_int4
 from ..models.decoder import (
     DecodeState,
     forward_layers,
+    layer_mat,
     lm_head_logits,
     rope_rows,
 )
-from .cuda_lib import check, check_tensor, load_library, stream_of
+from .cuda_lib import (
+    FORM_BF16,
+    FORM_INT4,
+    FORM_INT8,
+    QttsDecoder,
+    QttsMat,
+    check,
+    check_tensor,
+    load_library,
+    stream_of,
+)
+
+GROUP = 128   # the rows of one scale group the kernel's grouped GEMVs take
+
+
+def _grouped(a: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Σ_g (a_g @ w_g) * s[g]: each group's f32 partial product scaled."""
+    ng, n_out = s.shape
+    T, n_in = a.shape
+    part = torch.einsum("tgk,gkn->gtn", a.reshape(T, ng, n_in // ng),
+                        w.reshape(ng, n_in // ng, n_out))
+    return (part * s[:, None, :]).sum(dim=0)
+
+
+def mm_scaled(a: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None) -> torch.Tensor:
+    """The kernel's matrix product (JAX `make_mms().mm_scaled`): bf16-rounded
+    activations `a [T, in]` times one layer's weights, in f32. bf16 `w`
+    (`s` None); int8 `[in, out]` with `s [1, out]` scaling the product or
+    `s [ng, out]` scaling each group's partial; packed int4 `[in/2, out]`
+    whose low half takes scale rows [0, ng/2) and high half the rest."""
+    a = a.to(torch.bfloat16).float()
+    if s is None:
+        return a @ w.float()
+    ng = s.shape[0]
+    if is_packed(w, a.shape[1]):
+        lo, hi = unpack_int4(w)
+        half = a.shape[1] // 2
+        return (_grouped(a[:, :half], lo.float(), s[:ng // 2])
+                + _grouped(a[:, half:], hi.float(), s[ng // 2:]))
+    if ng == 1:
+        return (a @ w.float()) * s
+    return _grouped(a, w.float(), s)
 
 
 def megakernel_forward_reference(cfg: DecoderConfig, w: DecoderWeights,
@@ -38,39 +83,69 @@ def megakernel_forward_reference(cfg: DecoderConfig, w: DecoderWeights,
                                  cos: torch.Tensor, sin: torch.Tensor,
                                  with_head: bool = True):
     """Plain PyTorch version of the kernel: the dense single-token layer of
-    `models/decoder.py` (same bf16 rounding points), cache written in place.
-    Returns (state, logits [V] f32 or None, normed [H] f32)."""
-    state, normed = forward_layers(cfg, w, state, embed.float()[None, :], cos, sin)
+    `models/decoder.py` with `mm_scaled` products (same bf16 rounding
+    points), cache written in place. Returns (state, logits [V] f32 or
+    None, normed [H] f32)."""
+    state, normed = forward_layers(cfg, w, state, embed.float()[None, :], cos, sin,
+                                   mm=mm_scaled)
     logits = lm_head_logits(w, normed)[0] if with_head else None
     return state, logits, normed[0]
 
 
-def check_decoder(kernel: str, cfg: DecoderConfig, w: DecoderWeights,
-                  state: DecodeState, dev: torch.device) -> None:
-    """Raise unless the weights and caches are what the decode-step code of
-    `csrc/decode_layer.cuh` takes: bf16, contiguous, on `dev`, at these
-    widths, with D = 128, at most 8 q heads per kv head and every matrix
-    width a multiple of 64."""
+def _mat(kernel: str, name: str, w: torch.Tensor, s: torch.Tensor | None,
+         lead: tuple, K: int, N: int, dev) -> QttsMat:
+    """Check one matrix ([*lead, K, N] in its form) and describe it."""
+    if s is None:
+        check_tensor(kernel, name, w, (*lead, K, N), torch.bfloat16, dev)
+        return QttsMat(w.data_ptr(), None, FORM_BF16, 1)
+    packed = is_packed(w, K)
+    ng = s.shape[-2]
+    check_tensor(kernel, name, w, (*lead, K // 2 if packed else K, N), torch.int8, dev)
+    check_tensor(kernel, f"{name} scales", s, (*lead, ng, N), torch.float32, dev)
+    if (packed or ng > 1) and (ng * GROUP != K or (packed and ng % 2)):
+        raise ValueError(f"{kernel}: {name} has {ng} scale groups over {K} rows; the "
+                         f"kernel takes groups of {GROUP} rows")
+    return QttsMat(w.data_ptr(), s.data_ptr(), FORM_INT4 if packed else FORM_INT8, ng)
+
+
+def decoder_struct(kernel: str, cfg: DecoderConfig, w: DecoderWeights,
+                   state: DecodeState, dev: torch.device, with_head: bool) -> QttsDecoder:
+    """Check the weights and caches against what `csrc/decode_layer.cuh`
+    takes — each matrix bf16, int8 or packed int4 with groups of 128 rows,
+    the head bf16 or int8, the cache bf16 or int8 with f32 row scales, all
+    contiguous on `dev`, D = 128, at most 8 q heads per kv head and every
+    matrix width a multiple of 64 — and describe them for the C call.
+    Raises otherwise."""
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     KVH, D, S, V = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len, cfg.vocab_size
     Q, KV, bf, lw = cfg.q_size, cfg.kv_size, torch.bfloat16, w.layers
-    for name, t, shape in (
-            ("input_norm", lw.input_norm, (L, H)),
-            ("wqkv", lw.wqkv, (L, H, Q + 2 * KV)),
-            ("q_norm", lw.q_norm, (L, D)),
-            ("k_norm", lw.k_norm, (L, D)),
-            ("wo", lw.wo, (L, Q, H)),
-            ("post_norm", lw.post_norm, (L, H)),
-            ("w_gate_up", lw.w_gate_up, (L, H, 2 * I)),
-            ("w_down", lw.w_down, (L, I, H)),
-            ("final_norm", w.final_norm, (H,)),
-            ("lm_head", w.lm_head, (H, V)),
-            ("k_cache", state.k_cache, (L, KVH, S, D)),
-            ("v_cache", state.v_cache, (L, KVH, S, D))):
+    for name, t, shape in (("input_norm", lw.input_norm, (L, H)),
+                           ("q_norm", lw.q_norm, (L, D)), ("k_norm", lw.k_norm, (L, D)),
+                           ("post_norm", lw.post_norm, (L, H)),
+                           ("final_norm", w.final_norm, (H,))):
         check_tensor(kernel, name, t, shape, bf, dev)
+    mats = {name: _mat(kernel, name, *layer_mat(lw, name), (L,), K, N, dev)
+            for name, K, N in (("wqkv", H, Q + 2 * KV), ("wo", Q, H),
+                               ("w_gate_up", H, 2 * I), ("w_down", I, H))}
+    head = QttsMat(None, None, FORM_BF16, 1)
+    if with_head:
+        head = _mat(kernel, "lm_head", w.lm_head, getattr(w, "lm_head_s", None), (), H, V, dev)
+    kv8 = state.k_scale is not None
+    for name, t in (("k_cache", state.k_cache), ("v_cache", state.v_cache)):
+        check_tensor(kernel, name, t, (L, KVH, S, D), torch.int8 if kv8 else bf, dev)
+    if kv8:
+        for name, t in (("k_scale", state.k_scale), ("v_scale", state.v_scale)):
+            check_tensor(kernel, name, t, (L, KVH, S), torch.float32, dev)
     if D != 128 or cfg.num_q_heads % KVH or cfg.gqa_groups > 8 or any(
             n % 64 for n in (H, Q + 2 * KV, 2 * I, V)):
         raise ValueError(f"{kernel} kernel does not take this config: {cfg}")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    return QttsDecoder(
+        lw.input_norm.data_ptr(), lw.q_norm.data_ptr(), lw.k_norm.data_ptr(),
+        lw.post_norm.data_ptr(), w.final_norm.data_ptr(), mats["wqkv"], mats["wo"],
+        mats["w_gate_up"], mats["w_down"], head, state.k_cache.data_ptr(),
+        state.v_cache.data_ptr(), ptr(state.k_scale), ptr(state.v_scale),
+        L, H, I, cfg.num_q_heads, KVH, D, S, V, cfg.rms_eps)
 
 
 def megakernel_forward(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
@@ -89,13 +164,12 @@ def megakernel_forward(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState
     if dev.type != "cuda":
         raise ValueError(f"decode_step: no kernel for device {dev}")
 
-    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
-    HQ, KVH, D, S, V = (cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim,
-                        cfg.max_seq_len, cfg.vocab_size)
-    f32, lw = torch.float32, w.layers
+    H, I, HQ, KVH, D, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
+                           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    f32 = torch.float32
     embed = embed.to(f32).contiguous()
     cos, sin = cos.reshape(D // 2).contiguous(), sin.reshape(D // 2).contiguous()
-    check_decoder("decode_step", cfg, w, state, dev)
+    dec = decoder_struct("decode_step", cfg, w, state, dev, with_head)
     for name, t, n in (("embed", embed, H), ("cos", cos, D // 2), ("sin", sin, D // 2)):
         check_tensor("decode_step", name, t, (n,), f32, dev)
 
@@ -105,14 +179,8 @@ def megakernel_forward(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState
     normed = torch.empty(H, dtype=f32, device=dev)
     logits = torch.empty(V, dtype=f32, device=dev) if with_head else None
     err = lib.qtts_decode_step(
-        embed.data_ptr(), lw.input_norm.data_ptr(), lw.wqkv.data_ptr(),
-        lw.q_norm.data_ptr(), lw.k_norm.data_ptr(), lw.wo.data_ptr(),
-        lw.post_norm.data_ptr(), lw.w_gate_up.data_ptr(), lw.w_down.data_ptr(),
-        w.final_norm.data_ptr(), w.lm_head.data_ptr() if with_head else None,
-        cos.data_ptr(), sin.data_ptr(), state.k_cache.data_ptr(),
-        state.v_cache.data_ptr(), normed.data_ptr(),
-        logits.data_ptr() if with_head else None, ws.data_ptr(),
-        L, H, I, HQ, KVH, D, S, V, pos, cfg.rms_eps, stream_of(dev))
+        dec, embed.data_ptr(), cos.data_ptr(), sin.data_ptr(), normed.data_ptr(),
+        logits.data_ptr() if with_head else None, ws.data_ptr(), pos, stream_of(dev))
     check("decode_step", err)
     megakernel_forward.launches += 1
     return state._replace(position=pos + 1), logits, normed

@@ -1,8 +1,9 @@
 """N greedy decode steps in one call: the CUDA kernel, its plain version, the wrapper.
 
 Port of `qwen_tts_tpu/ops/generate_kernel.py` (`generate_megakernel` :769,
-`_generate_impl` :514, Pallas body `_gen_kernel` :52) for bf16 weights and
-a bf16 KV cache. Step n runs the talker's decode step at cache row
+`_generate_impl` :514, Pallas body `_gen_kernel` :52) for every weight form
+of the decode step (bf16, int8, int4-g128, mixed) and a bf16 or int8 KV
+cache. Step n runs the talker's decode step at cache row
 `pos0 + n` from the embedding of the previous step's argmax (step 0 from
 `embed[first_token]`), writing the K/V column into the cache in place. With
 `cfg.mrope_section` set, section s of the rotary frequencies rotates by
@@ -13,6 +14,13 @@ runs `generate_megakernel_reference`; on a CUDA device it makes one C call
 to `csrc/generate.cu`, which enqueues all N steps with the token fed back
 on the device (no host sync between steps), or raises.
 `generate_megakernel.launches` counts those calls.
+
+Each step is the decode step of `ops/decode_step.py`, so the in-flight
+token joins its own attention as an f32 column. The JAX kernel stages it
+in its tail ring in the cache's dtype and reads it back
+(`generate_kernel.py:278-297, 389-421`); under an int8 cache the two differ
+by one int8 rounding of that column, which the JAX package's own kv8
+generation tests allow for (`tests/test_generate_kernel.py:246-335`).
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from ..core.config import DecoderConfig
 from ..core.weights import DecoderWeights
 from ..models.decoder import DecodeState, rope_rows
 from .cuda_lib import check, check_tensor, int4, load_library, stream_of
-from .decode_step import check_decoder, megakernel_forward_reference
+from .decode_step import decoder_struct, megakernel_forward_reference
 
 
 def _mrope_starts(cfg: DecoderConfig, pos0: int,
@@ -100,10 +108,9 @@ def generate_megakernel(cfg: DecoderConfig, w: DecoderWeights, state: DecodeStat
     if dev.type != "cuda":
         raise ValueError(f"generate: no kernel for device {dev}")
 
-    L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
-    HQ, KVH, D, S, V = (cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim,
-                        cfg.max_seq_len, cfg.vocab_size)
-    check_decoder("generate", cfg, w, state, dev)
+    H, I, HQ, KVH, D, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
+                           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    dec = decoder_struct("generate", cfg, w, state, dev, with_head=True)
     if w.embed.shape[0] < V:
         raise ValueError(f"generate: embedding table {tuple(w.embed.shape)} has fewer "
                          f"rows than the vocabulary ({V})")
@@ -121,15 +128,9 @@ def generate_megakernel(cfg: DecoderConfig, w: DecoderWeights, state: DecodeStat
     ws = torch.empty(lib.qtts_generate_workspace_bytes(H, I, HQ, KVH, D, V),
                      dtype=torch.uint8, device=dev)
     tokens = torch.empty(num_steps, dtype=torch.int32, device=dev)
-    lw = w.layers
     err = lib.qtts_generate(
-        first.data_ptr(), w.embed.data_ptr(), lw.input_norm.data_ptr(),
-        lw.wqkv.data_ptr(), lw.q_norm.data_ptr(), lw.k_norm.data_ptr(),
-        lw.wo.data_ptr(), lw.post_norm.data_ptr(), lw.w_gate_up.data_ptr(),
-        lw.w_down.data_ptr(), w.final_norm.data_ptr(), w.lm_head.data_ptr(),
-        w.rope.cos.data_ptr(), w.rope.sin.data_ptr(), rows,
-        state.k_cache.data_ptr(), state.v_cache.data_ptr(), tokens.data_ptr(),
-        ws.data_ptr(), L, H, I, HQ, KVH, D, S, V, pos0, num_steps, cfg.rms_eps,
+        dec, first.data_ptr(), w.embed.data_ptr(), w.rope.cos.data_ptr(),
+        w.rope.sin.data_ptr(), rows, tokens.data_ptr(), ws.data_ptr(), pos0, num_steps,
         len(secs), int4(secs), int4(deltas), stream_of(dev))
     check("generate", err)
     generate_megakernel.launches += 1

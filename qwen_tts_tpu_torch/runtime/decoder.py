@@ -3,8 +3,10 @@
 The same surface as the JAX `TTSDecoder`: `step(token_id)`,
 `step_with_embed(embed)`, `prefill(embeds)`, `reset()`, `position`,
 `embed_weight` and `state`, over the functional decoder of
-`models/decoder.py`. The KV cache lives on the weights' device and is
-updated in place. The TTS engine's frame loop does not go through this
+`models/decoder.py`. The weights may be bf16 or quantized (int8, int4-g128,
+mixed: `core/weights.py`). The KV cache is bf16, as in JAX (a state set
+through `state` may hold an int8 one); it lives on the weights' device and
+is updated in place. The TTS engine's frame loop does not go through this
 class; it serves parity checks and callers that drive the talker alone.
 
 Backends: `"dense"` is plain torch (the JAX package calls its plain
@@ -22,7 +24,7 @@ import torch
 from ..core.config import TALKER_CONFIG, DecoderConfig
 from ..core.weights import DecoderWeights
 from ..models import decoder as _decoder
-from ..models.decoder import DecodeState, init_state
+from ..models.decoder import DecodeState, init_state, reset_state
 
 BACKENDS = ("dense", "pallas", "mega")
 
@@ -59,10 +61,8 @@ class TTSDecoder:
         return int(nxt), hidden
 
     def reset(self):
-        """Zero the cache and return to position 0."""
-        self._state.k_cache.zero_()
-        self._state.v_cache.zero_()
-        self._state = self._state._replace(position=0)
+        """Zero the cache (and its scales) and return to position 0."""
+        self._state = reset_state(self._state)
 
     @property
     def position(self) -> int:

@@ -4,8 +4,8 @@ Against the JAX `TTSEngine` with the same weights (`from_jax`) and text at
 the reduced config, greedy: the first frame's 16 codes identical, >= 95% of
 the codes of the first 8 frames identical, and the audio of chunks whose
 codes are identical within 1e-3. Then the port alone: chunk lengths,
-chunking-invariant sampled codes, EOS as the stop, and the options that are
-not ported yet."""
+chunking-invariant sampled codes, EOS as the stop, the options that are
+not ported yet, and unknown quantization options."""
 
 import asyncio
 
@@ -181,9 +181,14 @@ def test_metrics_and_nonstreaming_length(port):
     assert m["position"] > 0 and np.abs(wav).max() <= 1.0
 
 
-@pytest.mark.parametrize("kw", [dict(quantize=True), dict(kv_cache="int8"),
-                                dict(vocoder_backend="code2wav"), dict(quantize="int4"),
+@pytest.mark.parametrize("kw", [dict(quantize="int2"), dict(kv_cache="fp8"),
+                                dict(vocoder_backend="code2wav"), dict(cp_quantize="int3"),
                                 dict(model_path="/nonexistent")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Options not ported yet raise NotImplementedError naming the ROADMAP
+    item; unknown quantize / kv_cache / cp_quantize values raise the JAX
+    engine's ValueError."""
+    unported = {"vocoder_backend", "model_path"} & kw.keys()
+    with pytest.raises(NotImplementedError if unported else ValueError,
+                       match="ROADMAP" if unported else "unknown"):
         TTSEngine(TTSConfig(**kw))

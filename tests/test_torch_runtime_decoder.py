@@ -6,7 +6,10 @@ sides fed JAX's tokens), one `step_with_embed`, `position`, `reset` and a
 prefill again. Hidden states at the bar of tests/test_megakernel.py
 (cosine > 0.999, allclose 2e-2), tokens equal or a near tie of JAX's
 logits (top-2 gap < 2e-2). Run on the port's backends "dense", "pallas"
-and "mega" (on the CPU the kernels run their plain versions)."""
+and "mega" (on the CPU the kernels run their plain versions). Then the
+same on mixed-quantized weights (int8 attention, int4-g128 MLP, int8 head)
+against the JAX decoder on the same quantized tree, with `reset` zeroing
+an int8 cache's scales too."""
 
 import jax
 import jax.numpy as jnp
@@ -15,10 +18,11 @@ import pytest
 import torch
 
 from qwen_tts_tpu.core.config import tiny_test_config
-from qwen_tts_tpu.core.weights import init_decoder_weights
+from qwen_tts_tpu.core.weights import init_decoder_weights, quantize_decoder_weights_mixed
 from qwen_tts_tpu.models import decoder as jd
 from qwen_tts_tpu.runtime.decoder import TTSDecoder as JDecoder
-from qwen_tts_tpu_torch.core.weights import DecoderWeights, convert_tuple
+from qwen_tts_tpu_torch.core.weights import DecoderWeights, Quant4DecoderWeights, convert_tuple
+from qwen_tts_tpu_torch.models.decoder import init_state
 from qwen_tts_tpu_torch.runtime.decoder import TTSDecoder
 
 CFG = tiny_test_config(max_seq_len=64).talker
@@ -89,3 +93,26 @@ def test_decoder_rejects_unknown_backend(jax_run):
     jw = jax_run[0]
     with pytest.raises(ValueError, match="backend"):
         TTSDecoder(convert_tuple(DecoderWeights, jw, "cpu"), CFG, backend="xla")
+
+
+@pytest.mark.parametrize("backend", ["dense", "mega"])
+def test_decoder_takes_quantized_weights(backend):
+    jw = quantize_decoder_weights_mixed(init_decoder_weights(jax.random.PRNGKey(13), CFG))
+    prompt = np.random.default_rng(19).standard_normal((8, CFG.hidden_size)).astype(np.float32)
+    jdec = JDecoder(jw, CFG, backend="xla")
+    dec = TTSDecoder(convert_tuple(Quant4DecoderWeights, jw, "cpu"), CFG, backend=backend)
+    jtok, jhid = jdec.prefill(jnp.asarray(prompt))
+    tok, hid = dec.prefill(torch.from_numpy(prompt))
+    _hidden_close(jhid, hid)
+    assert _token_ok(jw, jhid, jtok, tok)
+    for _ in range(3):
+        jtok_next, jhid_next = jdec.step(jtok)
+        tok, hid = dec.step(jtok)
+        _hidden_close(jhid_next, hid)
+        assert _token_ok(jw, jhid_next, jtok_next, tok)
+        jtok = jtok_next
+    dec.state = init_state(CFG, "cpu", torch.int8)
+    dec.step(jtok)
+    assert dec.state.k_scale.any()
+    dec.reset()
+    assert dec.position == 0 and not dec.state.k_scale.any() and not dec.state.v_scale.any()

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [profile] [phases] [positions]
+    python3 tools/profile_port.py [profile] [phases] [positions] [forms] [field=value ...]
 
-With no argument all three run, at full width (Qwen3-TTS-12Hz-0.6B, random
-weights from seed 0, the default `TTSConfig()`, which runs on the card):
+With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
+random weights from seed 0, `TTSConfig()` on the card, with any
+`field=value` arguments set on it, e.g. `quantize=int8 kv_cache=int8`):
 
   profile    one warm 14-word streaming request under `torch.profiler`:
              wall time with and without the profiler, device busy time,
@@ -18,6 +19,10 @@ weights from seed 0, the default `TTSConfig()`, which runs on the card):
              `cp_predict`, one talker step, one vocoder chunk, and TTFC.
   positions  the talker step, kernel against plain version, over a random
              cache at positions 1000, 4095 and 8191 (CUDA events).
+  forms      one talker step at position 300 for each weight form (bf16,
+             int8, int8 with 128-row groups, int4-g128, mixed), over a bf16
+             and an int8 cache: device time by kernel, and the GEMVs'
+             achieved bandwidth (the form's matrix bytes over their time).
 
 Every line carries the card's name and power limit. The full profiler
 tables go to `chiprun_out/profile_port.txt`.
@@ -68,7 +73,6 @@ def profile(eng, card, out):
     from torch.profiler import profile as torch_profile
 
     from qwen_tts_tpu_torch.models.decoder import init_state
-    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
 
     _stream(eng, TEXT)
     _ttfc, plain_wall, audio_s = _stream(eng, TEXT)
@@ -95,20 +99,39 @@ def profile(eng, card, out):
         sort_by="self_device_time_total", row_limit=60) + "\n")
 
     cfg, w = eng.model_config.talker, eng.weights.talker
-    state = init_state(cfg, "cuda")._replace(position=100)
+    state = init_state(cfg, "cuda", eng._kv_dtype)._replace(position=100)
+    parts, enqueue_ms, table = _step_parts(cfg, w, state, 50)
+    print(f"talker step at position 100: device {sum(p[0] for p in parts.values()):.1f} "
+          f"us, {sum(p[1] for p in parts.values()):.1f} launches; host enqueue "
+          f"{enqueue_ms:.3f} ms [{card}]")
+    for name, (us, cnt) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {name[:40]:40s} {us:8.1f} us  {cnt:6.1f} launches/step")
+    out.write("== talker step, position 100 ==\n" + table + "\n")
+
+
+def _step_parts(cfg, w, state, n: int):
+    """One talker step at the state's position, `n` times: ({kernel name:
+    [device us per step, launches per step]}, host enqueue ms per step,
+    the profiler's table)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
+
+    pos = state.position
     embed = torch.randn(cfg.hidden_size, device="cuda")
-    mp = [100] * len(cfg.mrope_section)
+    mp = [pos] * len(cfg.mrope_section)
     step = lambda: megakernel_forward(cfg, w, state, embed, mrope_pos=mp)  # noqa: E731
     for _ in range(5):
         step()
     torch.cuda.synchronize()
-    n = 50
     t0 = time.perf_counter()
     for _ in range(n):
         step()
     enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
-    with torch_profile(activities=acts) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
@@ -117,17 +140,45 @@ def profile(eng, card, out):
     for e in events:
         if e.device_type.name == "CUDA" and _device_us(e) > 0:
             name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            name = name.split("(")[0].split("::")[-1]
             parts[name][0] += _device_us(e) / n
             parts[name][1] += e.count / n
-    total = sum(p[0] for p in parts.values())
-    print(f"talker step at position 100: device {total:.1f} us, "
-          f"{sum(p[1] for p in parts.values()):.1f} launches; host enqueue "
-          f"{enqueue_ms:.3f} ms [{card}]")
-    for name, (us, cnt) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {name[:40]:40s} {us:8.1f} us  {cnt:6.1f} launches/step")
-    out.write("== talker step, position 100 ==\n" + events.table(
-        sort_by="self_device_time_total", row_limit=30) + "\n")
+    return parts, enqueue_ms, events.table(sort_by="self_device_time_total", row_limit=30)
+
+
+def forms(eng, card, out):
+    """The talker step at position 300 in each weight form and cache."""
+    import torch
+
+    import chip_smoke
+    from qwen_tts_tpu_torch.core.weights import QUANTIZERS
+
+    cfg, w = eng.model_config.talker, eng.weights.talker
+    if hasattr(w.layers, "wqkv_q"):
+        raise SystemExit("forms: run it on the bf16 engine (no quantize=...)")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    variants = {"bf16": w, "int8": QUANTIZERS["int8"](w),
+                "int8g128": QUANTIZERS["int8"](w, group_size=128),
+                "int4": QUANTIZERS["int4"](w), "mixed": QUANTIZERS["mixed"](w)}
+    for label, qw in variants.items():
+        mats = [t for t in qw.layers if t.dim() == 3] + [
+            t for t in (qw.lm_head, getattr(qw, "lm_head_s", None)) if t is not None]
+        gemv_bytes = sum(t.numel() * t.element_size() for t in mats)
+        for kv8 in (False, True):
+            state = chip_smoke.random_state(cfg, 300, gen, kv8)
+            parts, enqueue_ms, table = _step_parts(cfg, qw, state, 30)
+            total = sum(p[0] for p in parts.values())
+            gemv_us = sum(p[0] for k, p in parts.items() if k.startswith("gemv"))
+            bound_ms, _ = chip_smoke._bound_ms(*chip_smoke.step_cost(cfg, qw, 300, True, kv8))
+            print(f"talker step [{label}, {'int8' if kv8 else 'bf16'} cache] at position 300: "
+                  f"device {total:.1f} us (bound {bound_ms * 1e3:.1f} us), "
+                  f"{sum(p[1] for p in parts.values()):.1f} launches, host enqueue "
+                  f"{enqueue_ms:.3f} ms; GEMVs {gemv_us:.1f} us for {gemv_bytes / 1e9:.4f} "
+                  f"GB = {gemv_bytes / gemv_us / 1e6:.3f} TB/s [{card}]")
+            for name, (us, cnt) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
+                print(f"  {name[:48]:48s} {us:8.1f} us  {cnt:6.1f} launches/step")
+            out.write(f"== talker step {label}, kv8={kv8}, position 300 ==\n{table}\n")
 
 
 def phases(eng, card):
@@ -197,10 +248,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
-    which = sys.argv[1:] or ["profile", "phases", "positions"]
+    args = sys.argv[1:]
+    which = [a for a in args if "=" not in a] or ["profile", "phases", "positions"]
+    options = dict(a.split("=", 1) for a in args if "=" in a)
     card = _card()
-    eng = TTSEngine(TTSConfig())
+    eng = TTSEngine(TTSConfig(**options))
     eng.initialize()
+    print(f"engine options {options or 'default'} [{card}]")
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as out:
         for name in which:
@@ -210,6 +264,8 @@ def main() -> int:
                 phases(eng, card)
             elif name == "positions":
                 positions(eng, card)
+            elif name == "forms":
+                forms(eng, card, out)
             else:
                 raise SystemExit(f"unknown part {name!r}")
     print(json.dumps({"ok": True, "parts": which}))
