@@ -50,9 +50,20 @@
 // workspace and are summed, in a fixed order, by the kernel that consumes
 // them (no atomics: results are deterministic).
 //
+// The attention stage, one launch a layer (attention_step), is the
+// decode-attention core of attention_core.cuh, which the standalone
+// decode-attention kernel shares: a cluster of blocks per kv head, each
+// streaming a contiguous range of 64-row cache tiles through a TMA
+// bulk-copy ring, merged by rank 0 through distributed shared memory in a
+// fixed order. Its bytes grow with the position: at 8191 the 28 talker layers
+// read 0.94 GB of bf16 cache a step, more than the weights (0.28 ms at
+// 3.35 TB/s). Before, one block per kv head walked the prefix a row per
+// warp, ~30 us a layer at position 300 and 21.3 ms a step at 8191.
+//
 // Constraints: head_dim D = 128, at most 8 q heads per kv head, every
-// matrix width (H, Q + 2*KV, 2*I, V) a multiple of 64, and grouped scales
-// over groups of exactly 128 rows.
+// matrix width (H, Q + 2*KV, 2*I, V) a multiple of 64, grouped scales
+// over groups of exactly 128 rows, and a cache length S that is a multiple
+// of 8 (the attention core copies int8 row scales 4 at a time).
 
 #pragma once
 
@@ -62,7 +73,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "attention_core.cuh"
 
 // One weight matrix, layer-stacked: w is [L, K, N] bf16 or int8, or
 // [L, K/2, N] packed int4; s is [L, ng, N] f32 (null for bf16).
@@ -102,23 +113,7 @@ constexpr int kGemvRows = 32;     // rows per block per pass
 constexpr int kGemvUnroll = 4;    // passes whose loads are issued together
 constexpr int kGroup = kGemvRows * kGemvUnroll;  // 128: one pass, one scale group
 constexpr int kMaxSplit = 32;     // split-K factor bound (sizes the workspace)
-constexpr int kHeadDim = 128;
-constexpr int kMaxGroups = 8;     // q heads per kv head
-constexpr int kAttnThreads = 256;
-constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kNormThreads = 1024;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Sum the block's 32 row lanes and write the split's partial of its 64
 // columns, times the column's scale when col_scale is set.
@@ -379,28 +374,19 @@ residual_rmsnorm(const float* x_in, const float* __restrict__ part, int nsplit,
   }
 }
 
-// Four cache values of one row as floats: bf16 (8 bytes) or int8 (4 bytes).
-__device__ __forceinline__ void load_row4(const bf16* p, float (&f)[4]) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-}
-
-__device__ __forceinline__ void load_row4(const int8_t* p, float (&f)[4]) {
-  const char4 r = *reinterpret_cast<const char4*>(p);
-  f[0] = (float)r.x; f[1] = (float)r.y; f[2] = (float)r.z; f[3] = (float)r.w;
-}
-
-// One block per kv head h: sum the split-K partials of its G q heads and of
-// its k and v head, per-head QK-RMSNorm, half-split RoPE, write the K/V
-// column at `pos` (bf16; or, for an int8 cache, rint(row / s) clipped to
-// +-127 and the row scale s = max(absmax, 1e-8) / 127 into ks / vs), then
-// online-softmax attention of the G q heads over the cache rows [0, pos)
-// plus the in-flight (f32) column. An int8 row's scale multiplies its score
-// and its probability's weight on V. Output bf16 [HQ*D]. The caches and
-// scales are this layer's: [KVH, S, D] and [KVH, S].
-template <typename CacheT>
+// The attention stage of one layer, a cluster of blocks per kv head h (the
+// core of attention_core.cuh). Every block sums the split-K partials of
+// h's G q heads and of its k and v head, applies per-head QK-RMSNorm and
+// half-split RoPE (cheap: (G + 2) x 128 values, so each block redoes it
+// rather than wait for one). Rank 0 writes the K/V column at `pos` (bf16;
+// or, for an int8 cache, rint(row / s) clipped to +-127 and the row scale
+// s = max(absmax, 1e-8) / 127 into ks / vs). The blocks read only the rows
+// [0, pos), so that write and their reads never meet. Then the G q heads
+// attend over those rows plus the in-flight (f32) column; an int8 row's
+// scale multiplies its score and its probability's weight on V. Output
+// bf16 [HQ*D]. The caches and scales are this layer's: [KVH, S, D] and
+// [KVH, S]. KG as in attend_cluster.
+template <typename CacheT, int KG>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_step(const float* __restrict__ part, int nsplit, int qkv_n,
                const bf16* __restrict__ q_norm, const bf16* __restrict__ k_norm,
@@ -408,21 +394,22 @@ attention_step(const float* __restrict__ part, int nsplit, int qkv_n,
                CacheT* __restrict__ k_cache, CacheT* __restrict__ v_cache,
                float* __restrict__ k_scale, float* __restrict__ v_scale,
                bf16* __restrict__ attn_out, int HQ, int KVH, int S, int pos,
-               float eps) {
+               float eps, int tpb) {
   constexpr bool kKv8 = sizeof(CacheT) == 1;
-  constexpr int D = kHeadDim;
-  constexpr int D2 = kHeadDim / 2;
-  const int h = blockIdx.x;
+  constexpr int D = kAttnD;
+  constexpr int D2 = kAttnD / 2;
+  __shared__ AttnShared sh;
+  extern __shared__ __align__(16) char attn_stages[];
+  const bool rank0 = cg::this_cluster().block_rank() == 0;
+  const int h = blockIdx.x / cg::this_cluster().num_blocks();
   const int G = HQ / KVH;
   const int Q = HQ * D, KV = KVH * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float scale = rsqrtf((float)D);
-
-  __shared__ float vecs[kMaxGroups + 2][D];  // q_0..q_{G-1}, k, v
-  __shared__ float s_new[kMaxGroups];
-  __shared__ float w_m[kAttnWarps][kMaxGroups];
-  __shared__ float w_l[kAttnWarps][kMaxGroups];
-  __shared__ float w_acc[kAttnWarps][kMaxGroups][D];
+  CacheT* kh = k_cache + (size_t)h * S * D;
+  CacheT* vh = v_cache + (size_t)h * S * D;
+  const float* ksh = kKv8 ? k_scale + (size_t)h * S : nullptr;
+  const float* vsh = kKv8 ? v_scale + (size_t)h * S : nullptr;
+  attn_start(sh, attn_stages, kh, vh, ksh, vsh, pos, tpb);  // the prefix streams in meanwhile
 
   for (int i = tid; i < (G + 2) * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
@@ -430,121 +417,51 @@ attention_step(const float* __restrict__ part, int nsplit, int qkv_n,
                           : (r == G ? Q + h * D + d : Q + KV + h * D + d);
     float s = 0.f;
     for (int sp = 0; sp < nsplit; ++sp) s += part[(size_t)sp * qkv_n + col];
-    vecs[r][d] = s;
+    sh.vecs[r][d] = s;
   }
   __syncthreads();
 
   for (int r = warp; r < G + 1; r += kAttnWarps) {  // QK-RMSNorm
     float ss = 0.f;
-    for (int d = lane; d < D; d += 32) ss = fmaf(vecs[r][d], vecs[r][d], ss);
+    for (int d = lane; d < D; d += 32) ss = fmaf(sh.vecs[r][d], sh.vecs[r][d], ss);
     ss = warp_sum(ss);
     const float inv = rsqrtf(ss / (float)D + eps);
     const bf16* nw = r < G ? q_norm : k_norm;
     for (int d = lane; d < D; d += 32)
-      vecs[r][d] = vecs[r][d] * inv * __bfloat162float(nw[d]);
+      sh.vecs[r][d] = sh.vecs[r][d] * inv * __bfloat162float(nw[d]);
   }
   __syncthreads();
 
   for (int i = tid; i < (G + 1) * D2; i += blockDim.x) {  // RoPE
     const int r = i / D2, j = i % D2;
-    const float x1 = vecs[r][j], x2 = vecs[r][j + D2];
+    const float x1 = sh.vecs[r][j], x2 = sh.vecs[r][j + D2];
     const float c = cos_row[j], s = sin_row[j];
-    vecs[r][j] = x1 * c - x2 * s;
-    vecs[r][j + D2] = x2 * c + x1 * s;
+    sh.vecs[r][j] = x1 * c - x2 * s;
+    sh.vecs[r][j + D2] = x2 * c + x1 * s;
   }
   __syncthreads();
 
-  CacheT* kh = k_cache + (size_t)h * S * D;
-  CacheT* vh = v_cache + (size_t)h * S * D;
-  const float* ksh = kKv8 ? k_scale + (size_t)h * S : nullptr;
-  const float* vsh = kKv8 ? v_scale + (size_t)h * S : nullptr;
-  if constexpr (kKv8) {
-    if (warp < 2) {  // warp 0 quantizes the k row, warp 1 the v row
-      const float* row = vecs[G + warp];
-      float am = 0.f;
-      for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(row[d]));
-      const float sc = fmaxf(warp_max(am), 1e-8f) / 127.f;
-      CacheT* dst = (warp == 0 ? kh : vh) + (size_t)pos * D;
-      for (int d = lane; d < D; d += 32)
-        dst[d] = (CacheT)fminf(fmaxf(rintf(row[d] / sc), -127.f), 127.f);
-      if (lane == 0) (warp == 0 ? k_scale : v_scale)[(size_t)h * S + pos] = sc;
-    }
-  } else {
-    for (int d = tid; d < D; d += blockDim.x) {
-      kh[(size_t)pos * D + d] = __float2bfloat16(vecs[G][d]);
-      vh[(size_t)pos * D + d] = __float2bfloat16(vecs[G + 1][d]);
+  if (rank0) {
+    if constexpr (kKv8) {
+      if (warp < 2) {  // warp 0 quantizes the k row, warp 1 the v row
+        const float* row = sh.vecs[G + warp];
+        float am = 0.f;
+        for (int d = lane; d < D; d += 32) am = fmaxf(am, fabsf(row[d]));
+        const float sc = fmaxf(warp_max(am), 1e-8f) / 127.f;
+        CacheT* dst = (warp == 0 ? kh : vh) + (size_t)pos * D;
+        for (int d = lane; d < D; d += 32)
+          dst[d] = (CacheT)fminf(fmaxf(rintf(row[d] / sc), -127.f), 127.f);
+        if (lane == 0) (warp == 0 ? k_scale : v_scale)[(size_t)h * S + pos] = sc;
+      }
+    } else {
+      for (int d = tid; d < D; d += blockDim.x) {
+        kh[(size_t)pos * D + d] = __float2bfloat16(sh.vecs[G][d]);
+        vh[(size_t)pos * D + d] = __float2bfloat16(sh.vecs[G + 1][d]);
+      }
     }
   }
-  for (int g = warp; g < G; g += kAttnWarps) {  // in-flight column's score
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s = fmaf(vecs[g][d], vecs[G][d], s);
-    s = warp_sum(s);
-    if (lane == 0) s_new[g] = s * scale;
-  }
-
-  // Each warp walks rows t = warp, warp + 8, ...; lane owns dims 4l..4l+3.
-  float q[kMaxGroups][4], m[kMaxGroups], l[kMaxGroups], acc[kMaxGroups][4];
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      q[g][e] = g < G ? vecs[g][lane * 4 + e] : 0.f;
-      acc[g][e] = 0.f;
-    }
-  }
-  for (int t = warp; t < pos; t += kAttnWarps) {
-    float kv[4], vv[4];
-    load_row4(kh + (size_t)t * D + lane * 4, kv);
-    load_row4(vh + (size_t)t * D + lane * 4, vv);
-    const float ks_t = kKv8 ? ksh[t] : 1.f;
-    const float vs_t = kKv8 ? vsh[t] : 1.f;
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if (g >= G) break;
-      float s = q[g][0] * kv[0];
-      s = fmaf(q[g][1], kv[1], s);
-      s = fmaf(q[g][2], kv[2], s);
-      s = fmaf(q[g][3], kv[3], s);
-      s = warp_sum(s) * scale;
-      if (kKv8) s *= ks_t;
-      const float m_new = fmaxf(m[g], s);
-      const float corr = expf(m[g] - m_new);
-      const float p = expf(s - m_new);
-      l[g] = l[g] * corr + p;
-      const float pv = kKv8 ? p * vs_t : p;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[g][e] = acc[g][e] * corr + pv * vv[e];
-      m[g] = m_new;
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) {
-    if (g >= G) break;
-    if (lane == 0) {
-      w_m[warp][g] = m[g];
-      w_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w_acc[warp][g][lane * 4 + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  for (int i = tid; i < G * D; i += blockDim.x) {  // merge warps + column
-    const int g = i / D, d = i % D;
-    float mx = s_new[g];
-    for (int w = 0; w < kAttnWarps; ++w) mx = fmaxf(mx, w_m[w][g]);
-    const float p_new = expf(s_new[g] - mx);
-    float den = p_new;
-    float num = p_new * vecs[G + 1][d];
-    for (int w = 0; w < kAttnWarps; ++w) {
-      const float c = expf(w_m[w][g] - mx);  // 0 for a warp that saw no row
-      den += w_l[w][g] * c;
-      num += w_acc[w][g][d] * c;
-    }
-    attn_out[(size_t)(h * G + g) * D + d] = __float2bfloat16(num / den);
-  }
+  attend_cluster<CacheT, KG>(sh, attn_stages, kh, vh, ksh, vsh, G, pos, tpb,
+                             attn_out + (size_t)h * G * D);
 }
 
 // act[i] = bf16(silu(gate[i]) * up[i]), gate|up summed over the splits.
@@ -675,28 +592,52 @@ bool mat_ok(const QttsMat& m, int K) {
 // True when the kernels take this decoder and `pos` is a cache row.
 bool decoder_ok(const QttsDecoder& d, int pos) {
   const int Q = d.HQ * d.D, QKV = Q + 2 * d.KVH * d.D;
-  return d.D == kHeadDim && d.KVH > 0 && d.HQ % d.KVH == 0 &&
-         d.HQ / d.KVH <= kMaxGroups && d.H % kGemvCols == 0 &&
+  return d.D == kAttnD && d.KVH > 0 && d.HQ % d.KVH == 0 &&
+         d.HQ / d.KVH <= kAttnMaxG && d.H % kGemvCols == 0 &&
          QKV % kGemvCols == 0 && (2 * d.I) % kGemvCols == 0 &&
-         d.V % kGemvCols == 0 && pos >= 0 && pos < d.S && d.L > 0 &&
+         d.V % kGemvCols == 0 && d.S % 8 == 0 && pos >= 0 && pos < d.S && d.L > 0 &&
          mat_ok(d.wqkv, d.H) && mat_ok(d.wo, Q) && mat_ok(d.w_gate_up, d.H) &&
          mat_ok(d.w_down, d.I) && (d.lm_head.w == nullptr || mat_ok(d.lm_head, d.H)) &&
          (d.k_scale == nullptr) == (d.v_scale == nullptr);
 }
 
-template <typename CacheT>
-void launch_attention(const QttsDecoder& d, int li, const float* part, int nsplit,
-                      const float* cos_row, const float* sin_row, bf16* out, int pos,
-                      cudaStream_t st) {
+// One clustered launch of layer li's attention stage: KVH clusters of
+// attn_blocks_per_head(pos) blocks. Returns the launch's error.
+template <typename CacheT, int KG>
+cudaError_t launch_attention(const QttsDecoder& d, int li, const float* part, int nsplit,
+                             const float* cos_row, const float* sin_row, bf16* out, int pos,
+                             cudaStream_t st) {
+  constexpr int kSmem = attn_dyn_smem<CacheT>();
+  static const cudaError_t prep =
+      attn_prepare((const void*)attention_step<CacheT, KG>, kSmem);
+  if (prep != cudaSuccess) return prep;
+  int tpb = 0;
+  const int nb = attn_blocks_per_head(pos, &tpb);
   const size_t rows = (size_t)d.KVH * d.S;
-  attention_step<CacheT><<<d.KVH, kAttnThreads, 0, st>>>(
-      part, nsplit, d.HQ * d.D + 2 * d.KVH * d.D,
-      static_cast<const bf16*>(d.q_norm) + (size_t)li * d.D,
+  return attn_launch(
+      attention_step<CacheT, KG>, d.KVH, nb, kSmem, st, part, nsplit,
+      d.HQ * d.D + 2 * d.KVH * d.D, static_cast<const bf16*>(d.q_norm) + (size_t)li * d.D,
       static_cast<const bf16*>(d.k_norm) + (size_t)li * d.D, cos_row, sin_row,
       static_cast<CacheT*>(d.k_cache) + li * rows * d.D,
       static_cast<CacheT*>(d.v_cache) + li * rows * d.D,
-      d.k_scale ? d.k_scale + li * rows : nullptr,
-      d.v_scale ? d.v_scale + li * rows : nullptr, out, d.HQ, d.KVH, d.S, pos, d.eps);
+      d.k_scale ? d.k_scale + li * rows : nullptr, d.v_scale ? d.v_scale + li * rows : nullptr,
+      out, d.HQ, d.KVH, d.S, pos, d.eps, tpb);
+}
+
+using AttentionLauncher = cudaError_t (*)(const QttsDecoder&, int, const float*, int,
+                                          const float*, const float*, bf16*, int, cudaStream_t);
+
+// The attention stage for this decoder's cache type and q heads per kv head.
+AttentionLauncher attention_launcher(const QttsDecoder& d) {
+  const int G = d.HQ / d.KVH;
+  if (d.k_scale != nullptr) {
+    if (G == 1) return &launch_attention<int8_t, 1>;
+    if (G == 2) return &launch_attention<int8_t, 2>;
+    return &launch_attention<int8_t, kAttnMaxG>;
+  }
+  if (G == 1) return &launch_attention<bf16, 1>;
+  if (G == 2) return &launch_attention<bf16, 2>;
+  return &launch_attention<bf16, kAttnMaxG>;
 }
 
 // Enqueue one token through all L layers at cache row `pos`, from the f32
@@ -717,10 +658,8 @@ int enqueue_step(const QttsDecoder& d, const float* x_in, const float* cos_row,
         x_in, prev_split ? ws.part : nullptr, prev_split, ws.x,
         input_norm + (size_t)li * H, ws.xb, nullptr, H, d.eps);
     const int s_qkv = launch_mat(d.wqkv, li, ws.xb, ws.part, H, QKV, st);
-    if (d.k_scale != nullptr)
-      launch_attention<int8_t>(d, li, ws.part, s_qkv, cos_row, sin_row, ws.attn, pos, st);
-    else
-      launch_attention<bf16>(d, li, ws.part, s_qkv, cos_row, sin_row, ws.attn, pos, st);
+    err = attention_launcher(d)(d, li, ws.part, s_qkv, cos_row, sin_row, ws.attn, pos, st);
+    if (err != cudaSuccess) return (int)err;
     const int s_o = launch_mat(d.wo, li, ws.attn, ws.part, Q, H, st);
     residual_rmsnorm<<<1, kNormThreads, 0, st>>>(
         ws.x, ws.part, s_o, ws.x, post_norm + (size_t)li * H, ws.xb, nullptr, H, d.eps);

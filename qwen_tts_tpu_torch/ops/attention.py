@@ -9,15 +9,20 @@ layer of a single-token step.
 
 `decode_attention` dispatches on where the tensors are: on the CPU it runs
 `decode_attention_reference`; on a CUDA device it launches
-`csrc/attention.cu` (a chunk-parallel flash-decode and an ordered merge),
-or raises. `decode_attention.launches` counts calls of the kernel.
+`csrc/attention.cu` once, or raises. The kernel is the decode-attention
+core of `csrc/attention_core.cuh`, which the decode step's attention stage
+shares: a thread-block cluster per kv head whose blocks stream contiguous
+64-row ranges of the prefix through a TMA bulk-copy ring, merged by the
+cluster's first block through distributed shared memory in a fixed order,
+the in-flight column last (no workspace, no atomics: the same bits on every
+run). `decode_attention.launches` counts calls of the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .cuda_lib import check, check_tensor, load_library, stream_of
+from .cuda_lib import check, check_aligned, check_tensor, load_library, stream_of
 
 
 def decode_attention_reference(q: torch.Tensor, k_new: torch.Tensor,
@@ -65,17 +70,16 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                                   ("k_cache", k_cache, (L, KVH, S, D), bf),
                                   ("v_cache", v_cache, (L, KVH, S, D), bf)):
         check_tensor("decode_attention", name, t, shape, dtype, dev)
+    check_aligned("decode_attention", k_cache, v_cache)
     if D != 128 or HQ % KVH or HQ // KVH > 8:
         raise ValueError(f"decode_attention kernel does not take HQ={HQ}, KVH={KVH}, D={D}")
 
     lib = load_library()
-    ws = torch.empty(lib.qtts_attention_workspace_bytes(HQ, KVH, D, position),
-                     dtype=torch.uint8, device=dev)
     out = torch.empty((HQ, D), dtype=f32, device=dev)
     err = lib.qtts_decode_attention(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), ws.data_ptr(), L, HQ, KVH, S, D,
-        layer_idx, position, stream_of(dev))
+        v_cache.data_ptr(), out.data_ptr(), L, HQ, KVH, S, D, layer_idx, position,
+        stream_of(dev))
     check("decode_attention", err)
     decode_attention.launches += 1
     return out

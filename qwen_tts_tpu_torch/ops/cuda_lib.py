@@ -54,8 +54,7 @@ _DEC = ctypes.POINTER(QttsDecoder)
 _SIGNATURES = {
     "qtts_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
     "qtts_decode_step": ([_DEC] + [_P] * 6 + [_I, _P], _I),
-    "qtts_attention_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
-    "qtts_decode_attention": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    "qtts_decode_attention": ([_P] * 6 + [_I] * 7 + [_P], _I),
     "qtts_generate_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
     "qtts_generate": ([_DEC] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 3
                       + [ctypes.POINTER(ctypes.c_int)] * 2 + [_P], _I),
@@ -146,6 +145,14 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, shape, dtype, device) 
                          f"on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_aligned(kernel: str, *tensors) -> None:
+    """Raise unless each tensor (None skipped) starts on a 16-byte boundary,
+    as the attention core's TMA copies of cache rows and scales need."""
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{kernel}: the KV cache and its scales must start on 16-byte "
+                         f"boundaries")
 
 
 def stream_of(device: torch.device) -> int:

@@ -41,6 +41,7 @@ from .cuda_lib import (
     QttsDecoder,
     QttsMat,
     check,
+    check_aligned,
     check_tensor,
     load_library,
     stream_of,
@@ -113,8 +114,9 @@ def decoder_struct(kernel: str, cfg: DecoderConfig, w: DecoderWeights,
     """Check the weights and caches against what `csrc/decode_layer.cuh`
     takes — each matrix bf16, int8 or packed int4 with groups of 128 rows,
     the head bf16 or int8, the cache bf16 or int8 with f32 row scales, all
-    contiguous on `dev`, D = 128, at most 8 q heads per kv head and every
-    matrix width a multiple of 64 — and describe them for the C call.
+    contiguous on `dev`, D = 128, at most 8 q heads per kv head, every
+    matrix width a multiple of 64 and `max_seq_len` a multiple of 8 — and
+    describe them for the C call.
     Raises otherwise."""
     L, H, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     KVH, D, S, V = cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len, cfg.vocab_size
@@ -136,7 +138,8 @@ def decoder_struct(kernel: str, cfg: DecoderConfig, w: DecoderWeights,
     if kv8:
         for name, t in (("k_scale", state.k_scale), ("v_scale", state.v_scale)):
             check_tensor(kernel, name, t, (L, KVH, S), torch.float32, dev)
-    if D != 128 or cfg.num_q_heads % KVH or cfg.gqa_groups > 8 or any(
+    check_aligned(kernel, state.k_cache, state.v_cache, state.k_scale, state.v_scale)
+    if D != 128 or cfg.num_q_heads % KVH or cfg.gqa_groups > 8 or S % 8 or any(
             n % 64 for n in (H, Q + 2 * KV, 2 * I, V)):
         raise ValueError(f"{kernel} kernel does not take this config: {cfg}")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731

@@ -112,15 +112,23 @@ def test_wrapper_has_no_plain_fallback_off_the_cpu(case):
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain(case):
+    """The kernel against its plain version on both sides of the attention
+    core's 64-row tile (one block a kv head up to 64 rows, a cluster of two
+    from 65 on the talker, whose cache holds 128 rows), and the same bits
+    on a second run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     cfg, with_heads, _, tw = case
     tw = td.DecoderWeights(*[
         type(x)(*[t.cuda() for t in x]) if isinstance(x, tuple) else x.cuda() for x in tw])
+    for pos in (p for p in (1, 37, 63, 64, 65, 127) if p < cfg.max_seq_len):
+        _check_kernel_at(cfg, with_heads, tw, pos)
+
+
+def _check_kernel_at(cfg, with_heads, tw, pos):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     state = td.init_state(cfg, "cuda")
-    pos = 37
     state.k_cache[:, :, :pos] = torch.randn(state.k_cache[:, :, :pos].shape,
                                             generator=gen, device="cuda").bfloat16()
     state.v_cache[:, :, :pos] = torch.randn(state.v_cache[:, :, :pos].shape,
@@ -128,9 +136,14 @@ def test_cuda_kernel_matches_plain(case):
     state = state._replace(position=pos)
     ref_state = state._replace(k_cache=state.k_cache.clone(), v_cache=state.v_cache.clone())
     embed = torch.randn(cfg.hidden_size, generator=gen, device="cuda")
+    again_state = state._replace(k_cache=state.k_cache.clone(), v_cache=state.v_cache.clone())
     before = tds.megakernel_forward.launches
     _, logits, normed = tds.megakernel_forward(cfg, tw, state, embed)
     assert tds.megakernel_forward.launches == before + 1
+    _, logits2, normed2 = tds.megakernel_forward(cfg, tw, again_state, embed)
+    assert torch.equal(normed, normed2) and torch.equal(state.k_cache, again_state.k_cache)
+    assert torch.equal(state.v_cache, again_state.v_cache)
+    assert not with_heads or torch.equal(logits, logits2)
     cos, sin = td.rope_rows(cfg, tw.rope, pos, 1)
     _, ref_logits, ref_normed = tds.megakernel_forward_reference(
         cfg, tw, ref_state, embed, cos, sin)

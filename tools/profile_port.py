@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [profile] [phases] [positions] [forms] [field=value ...]
+    python3 tools/profile_port.py [--root DIR] [profile] [phases] [positions] [forms]
+                                  [steps] [requests] [field=value ...]
 
 With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
 random weights from seed 0, `TTSConfig()` on the card, with any
-`field=value` arguments set on it, e.g. `quantize=int8 kv_cache=int8`):
+`field=value` arguments set on it, e.g. `quantize=int8 kv_cache=int8`).
+`--root DIR` imports the port (and `chip_smoke.py`'s helpers) from the tree
+at DIR instead of this checkout, so that one call to the card can time two
+trees in turn: unpack the other tree with `git archive` into a git-ignored
+directory and run parent, change, change, parent.
 
   profile    one warm 14-word streaming request under `torch.profiler`:
              wall time with and without the profiler, device busy time,
@@ -23,6 +28,17 @@ random weights from seed 0, `TTSConfig()` on the card, with any
              int8, int8 with 128-row groups, int4-g128, mixed), over a bf16
              and an int8 cache: device time by kernel, and the GEMVs'
              achieved bandwidth (the form's matrix bytes over their time).
+  steps      over a random cache: the talker step at positions 30, 300,
+             4095 and 8191 and the code-predictor step at 14 (device ms and
+             the attention stage's us per launch from the profiler, kernels
+             a step, host enqueue ms, back-to-back call ms from CUDA events,
+             best of three runs, and the device's span with the host ahead:
+             kernels plus the gaps between them); the standalone decode attention on one
+             layer of [28, 8, 8192, 128] bf16 caches at 300, 4095 and 8191
+             (device us per call); generation, 256 greedy steps from
+             position 0 (ms a step, best of two, and device busy a step).
+  requests   five warm 14-word streaming requests: TTFC median and the
+             streaming RTF (all wall over all audio).
 
 Every line carries the card's name and power limit. The full profiler
 tables go to `chiprun_out/profile_port.txt`.
@@ -39,7 +55,6 @@ import time
 from collections import defaultdict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 TEXT = "The quick brown fox jumps over the lazy dog while the band plays on."
 OUT = os.path.join(ROOT, "chiprun_out", "profile_port.txt")
@@ -109,20 +124,60 @@ def profile(eng, card, out):
     out.write("== talker step, position 100 ==\n" + table + "\n")
 
 
-def _step_parts(cfg, w, state, n: int):
-    """One talker step at the state's position, `n` times: ({kernel name:
-    [device us per step, launches per step]}, host enqueue ms per step,
-    the profiler's table)."""
+def _parts(fn, n: int):
+    """`n` calls of `fn` under the profiler: ({kernel name: [device us per
+    call, launches per call]}, the profiler's table)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    parts = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if e.device_type.name == "CUDA" and _device_us(e) > 0:
+            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            parts[name][0] += _device_us(e) / n
+            parts[name][1] += e.count / n
+    return parts, events.table(sort_by="self_device_time_total", row_limit=30)
 
-    pos = state.position
-    embed = torch.randn(cfg.hidden_size, device="cuda")
-    mp = [pos] * len(cfg.mrope_section)
-    step = lambda: megakernel_forward(cfg, w, state, embed, mrope_pos=mp)  # noqa: E731
+
+def _call_ms(fn, n: int, runs: int = 3, ahead: bool = False) -> float:
+    """Back-to-back call time of `fn` (CUDA events), the best of `runs` runs
+    of `n` calls after three warm ones. With `ahead`, the calls queue
+    behind a ~50 ms device sleep, so the host is not the bound: the time is
+    the device's span, the gaps between kernels included."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        if ahead:
+            torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / n)
+    return best
+
+
+def _step_parts(cfg, w, state, n: int, talker: bool = True):
+    """One decode step at the state's position, `n` times (the talker with
+    M-RoPE and its head, or the code predictor without): ({kernel name:
+    [device us per step, launches per step]}, host enqueue ms per step,
+    the profiler's table)."""
+    import torch
+
+    step = _stepper(cfg, w, state, talker)
     for _ in range(5):
         step()
     torch.cuda.synchronize()
@@ -131,19 +186,21 @@ def _step_parts(cfg, w, state, n: int):
         step()
     enqueue_ms = (time.perf_counter() - t0) / n * 1e3
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    parts = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        if e.device_type.name == "CUDA" and _device_us(e) > 0:
-            name = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
-            name = name.split("(")[0].split("::")[-1]
-            parts[name][0] += _device_us(e) / n
-            parts[name][1] += e.count / n
-    return parts, enqueue_ms, events.table(sort_by="self_device_time_total", row_limit=30)
+    parts, table = _parts(step, n)
+    return parts, enqueue_ms, table
+
+
+def _stepper(cfg, w, state, talker: bool):
+    """A decode step at the state's position, as a function of nothing."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
+
+    pos = state.position
+    embed = torch.randn(cfg.hidden_size, device="cuda")
+    mp = [pos] * len(cfg.mrope_section) if talker else None
+    return lambda: megakernel_forward(cfg, w, state, embed, mrope_pos=mp,  # noqa: E731
+                                      with_head=talker)
 
 
 def forms(eng, card, out):
@@ -240,7 +297,96 @@ def positions(eng, card):
               f"K/V rel L2 {max(res['k_col_max_rel_l2'], res['v_col_max_rel_l2']):.4f} [{card}]")
 
 
+def _random_state(cfg, pos: int, gen, dtype):
+    """A decode state at `pos` whose cache rows [0, pos) are random (bf16;
+    for an int8 cache, random int8 rows with scales ~1/64)."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.decoder import init_state
+
+    state = init_state(cfg, "cuda", dtype)
+    for cache, scales in ((state.k_cache, state.k_scale), (state.v_cache, state.v_scale)):
+        rows = torch.randn(cache[:, :, :pos].shape, generator=gen, device="cuda")
+        if dtype == torch.int8:
+            cache[:, :, :pos] = (rows * 40).clamp(-127, 127).round().to(torch.int8)
+            scales[:, :, :pos] = 1 / 64
+        else:
+            cache[:, :, :pos] = rows.to(torch.bfloat16)
+    return state._replace(position=pos)
+
+
+def steps(eng, card):
+    """Step, attention and generation times of the tree the port came from."""
+    import torch
+
+    from qwen_tts_tpu_torch.core.config import CODEC_BOS
+    from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.ops.attention import decode_attention
+    from qwen_tts_tpu_torch.ops.generate_kernel import generate_megakernel
+
+    mc, gen = eng.model_config, torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    cases = [("talker", mc.talker, eng.weights.talker, p, eng._kv_dtype)
+             for p in (30, 300, 4095, 8191)]
+    cases.append(("code predictor", mc.code_predictor, eng.weights.code_predictor.decoder, 14,
+                  torch.bfloat16))
+    for label, cfg, w, pos, dtype in cases:
+        state = _random_state(cfg, pos, gen, dtype)
+        parts, enqueue_ms, _ = _step_parts(cfg, w, state, 10, talker=label == "talker")
+        attn_us, attn_n = parts.get("attention_step", (0.0, 1.0))
+        step = _stepper(cfg, w, state, label == "talker")
+        res = {"device_ms": sum(p[0] for p in parts.values()) / 1e3,
+               "device_span_ms": _call_ms(step, 10, ahead=True),
+               "attention_us_per_launch": attn_us / max(attn_n, 1e-9),
+               "kernels_per_step": sum(p[1] for p in parts.values()),
+               "enqueue_ms": enqueue_ms, "call_ms": _call_ms(step, 50)}
+        print(f"steps: {label} step at position {pos}: {json.dumps(res)} [{card}]")
+        del state
+
+    cfg = mc.talker
+    L, KVH, S, D, HQ = (cfg.num_layers, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
+                        cfg.num_q_heads)
+    q, k_new, v_new = (torch.randn(shape, generator=gen, device="cuda")
+                       for shape in ((HQ, D), (KVH, D), (KVH, D)))
+    kc = torch.randn(L, KVH, S, D, generator=gen, device="cuda").bfloat16()
+    vc = torch.randn(L, KVH, S, D, generator=gen, device="cuda").bfloat16()
+    for pos in (300, 4095, 8191):
+        call = lambda: decode_attention(q, k_new, v_new, kc, vc, L - 1, pos)  # noqa: E731
+        call()
+        parts, _ = _parts(call, 100)
+        print(f"steps: decode attention at position {pos}: device "
+              f"{sum(p[0] for p in parts.values()):.3f} us a call [{card}]")
+    del kc, vc
+
+    state = init_state(cfg, "cuda", eng._kv_dtype)
+    first = torch.full((1,), CODEC_BOS, dtype=torch.int32, device="cuda")
+    starts = [0] * len(cfg.mrope_section)
+    call = lambda: generate_megakernel(cfg, eng.weights.talker, state, first, 256,  # noqa: E731
+                                       starts)
+    ms = _call_ms(call, 1, runs=2) / 256
+    parts, _ = _parts(call, 1)
+    busy = sum(p[0] for p in parts.values()) / 1e3 / 256
+    print(f"steps: generation, 256 steps from position 0: {ms:.4f} ms a step = "
+          f"{1e3 / ms:.1f} tok/s, device busy {busy:.4f} ms a step [{card}]")
+
+
+def requests(eng, card, n: int = 5):
+    _stream(eng, TEXT)                            # warm
+    runs = [_stream(eng, TEXT) for _ in range(n)]
+    ttfc = sorted(r[0] * 1e3 for r in runs)
+    rtf = sum(r[1] for r in runs) / sum(r[2] for r in runs)
+    print(f"requests: {n} warm 14-word streaming requests: TTFC median {ttfc[n // 2]:.2f} ms "
+          f"(min {ttfc[0]:.2f}, max {ttfc[-1]:.2f}), streaming RTF {rtf:.4f} [{card}]")
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    root = ROOT
+    if "--root" in args:
+        i = args.index("--root")
+        root = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
+    sys.path.insert(0, root)
     import torch
 
     from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
@@ -248,13 +394,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
-    args = sys.argv[1:]
     which = [a for a in args if "=" not in a] or ["profile", "phases", "positions"]
     options = dict(a.split("=", 1) for a in args if "=" in a)
     card = _card()
     eng = TTSEngine(TTSConfig(**options))
     eng.initialize()
-    print(f"engine options {options or 'default'} [{card}]")
+    print(f"tree {root}, engine options {options or 'default'} [{card}]")
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as out:
         for name in which:
@@ -266,6 +411,10 @@ def main() -> int:
                 positions(eng, card)
             elif name == "forms":
                 forms(eng, card, out)
+            elif name == "steps":
+                steps(eng, card)
+            elif name == "requests":
+                requests(eng, card)
             else:
                 raise SystemExit(f"unknown part {name!r}")
     print(json.dumps({"ok": True, "parts": which}))
