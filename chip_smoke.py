@@ -5,11 +5,16 @@
 
 Phases (any failure raises, so the exit code is nonzero and no result line
 is printed):
-  1. card name and power limit, torch and CUDA versions; builds the three
+  1. card name and power limit, torch and CUDA versions; builds the
      kernels of `qwen_tts_tpu_torch/csrc/` (one nvcc per source, started
      together, linked into one library) and prints ptxas' register,
      shared-memory and spill lines for each entry;
-  2. the decode-step kernel against its plain PyTorch version at full width
+  2. the persistent decode-step kernel's grid (blocks, blocks a kv head,
+     blocks an SM, SMs, shared memory, registers, and how many clusters of
+     8 and of 16 of its blocks the card holds at once,
+     cudaOccupancyMaxActiveClusters) for the talker on a bf16
+     and an int8 cache and for the code predictor; then the decode-step
+     kernel against its plain PyTorch version at full width
      (Qwen3-TTS-12Hz-0.6B, random weights from a seed): the 28-layer talker
      at positions 0, 1, 300, 4095 and 8191 over a randomly filled cache
      (across the attention core's tile and block boundaries and at long
@@ -26,10 +31,14 @@ is printed):
      tie (top-2 gap < 2e-2) of the CPU logits that chose it, the GPU taking
      the CPU's runner-up;
   4. step times of the decode-step kernel and its plain version (CUDA
-     events), the code-predictor step's device time, and the talker step
-     at positions 300, 4095 and 8191: device ms (profiler) and its
-     attention stage's us per layer, kernels per step (one attention
-     launch a layer) and call ms; TTFC and RTF of the eager engine;
+     events), the device's span of a talker and a code-predictor step with
+     the host ahead (the decode kernel's time: `torch.profiler` loses up
+     to all of its events), the kernels the profiler sees over 20
+     consecutive decode steps (talker on a bf16 and an int8 cache, code
+     predictor: the step kernel, at most once a step, and nothing else,
+     from a run in which the profiler saw a kernel),
+     and the talker step at positions 30, 300, 4095 and 8191: the device's
+     span, kernels a call, call ms; TTFC and RTF of the eager engine;
   5. the decode-attention kernel against its plain version at full talker
      shape (layer 27 of [28, 8, 8192, 128] caches) at positions 0, 1, 63,
      64, 65, 255, 256, 257, 300, 1023, 1024, 1025, 4095 and 8191, the rows
@@ -50,9 +59,12 @@ is printed):
   8. times (CUDA events, interleaved plain-kernel-kernel-plain): decode
      attention at positions 300, 4095 and 8191 beside its plain version and
      `scaled_dot_product_attention` on bf16 tensors of the same prefix
-     (the port never calls it); generation of 64 steps (best of two) beside one run of its plain
-     version, and of 256 steps from position 0 as tokens/s beside the
-     decode-step host loop's and the weight-bandwidth bound;
+     (the port never calls it); generation of 64 steps (best of two)
+     beside one run of its plain version, the kernels the profiler sees an
+     8-step call launch (at most one), and 256 steps from position 0 as
+     tokens/s beside the
+     decode-step host loop's and the weight-bandwidth bound, with the
+     device's span and idle share;
   9. the quantized forms of the decode-step kernel against its plain
      version at full width: int8 per channel, int8 with 128-row groups,
      int4-g128 and mixed, each with a bf16 and an int8 cache, the talker at
@@ -73,10 +85,13 @@ is printed):
      decode-step loop bit for bit (tokens, cache rows and scales) as in
      phase 6;
  12. times of each form: talker step at position 300 over an int8 cache
-     (kernel call, device, plain, the form's bound) and code-predictor
-     step (call and device), the int8 form's talker step at 300, 4095 and
-     8191 as in phase 4, generation of 64 and 256 steps for each form of
-     phase 11, and the int8+kv8 engine's TTFC and streaming RTF.
+     (kernel call, device span, plain, the form's bound) and
+     code-predictor step (call and device span), kernels per decode step
+     as in phase 4 (talker
+     on both caches, code predictor), the int8 form's talker step at 30,
+     300, 4095 and 8191 as in phase 4, generation of 64 and 256 steps for
+     each form of phase 11, and the int8+kv8 engine's TTFC and streaming
+     RTF.
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form as well; the last line is {"ok": true, "device":
 {...}}. JAX and the JAX package are blocked for the whole run: the port
@@ -110,6 +125,7 @@ BF16_FLOP_PER_S = 989e12
 # 64 rows (a tile), one tile a block up to 1,024 rows, then ranges of tiles.
 ATTN_POSITIONS = (0, 1, 63, 64, 65, 255, 256, 257, 300, 1023, 1024, 1025, 4095, 8191)
 ATTN_TIMED = (300, 4095, 8191)
+STEP_TIMED = (30, 300, 4095, 8191)          # talker step times
 STEP_POSITIONS = (0, 1, 300, 4095, 8191)    # talker, decode step vs plain
 ATTN_LAYER = 27
 GEN_STEPS = 64
@@ -153,10 +169,13 @@ def _time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_by_kernel(fn, iters: int) -> dict:
+def _kernel_counts(fn, iters: int) -> dict:
     """{kernel name: [device ms per call, launches per call]} over `iters`
     calls of `fn`, from `torch.profiler` (names without namespaces and
-    arguments)."""
+    arguments); empty if the profiler saw nothing. The profiler loses
+    events under load, never adds one: up to ~30% of the persistent decode
+    kernel's launches in a run, and at times all of them, so its launch
+    counts are ceilings and its times are taken per launch seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,16 +192,54 @@ def _device_by_kernel(fn, iters: int) -> dict:
             name = name.split("(")[0].split("<")[0].split("::")[-1]
             ms, n = parts.get(name, (0.0, 0.0))
             parts[name] = [ms + e.self_device_time_total / iters / 1e3, n + e.count / iters]
+    return parts
+
+
+def _kernels_seen(fn, iters: int, tries: int = 5) -> dict:
+    """{kernel name: launches per call} from `_kernel_counts`, run again
+    (up to `tries` times) until the profiler saw at least one kernel, so
+    that a check that it saw nothing else cannot pass on an empty set."""
+    for _ in range(tries):
+        counts = {k: v[1] for k, v in _kernel_counts(fn, iters).items()}
+        if counts:
+            return counts
+    raise AssertionError(f"the profiler saw no kernel in {tries} runs of {iters} calls")
+
+
+def _device_by_kernel(fn, iters: int) -> dict:
+    """`_kernel_counts`, which must have seen a kernel."""
+    parts = _kernel_counts(fn, iters)
     assert parts, "the profiler saw no device time"
     return parts
 
 
 def _device_ms(fn, iters: int) -> float:
     """Device time per call: the summed durations of the CUDA kernels that
-    `iters` calls ran, from `torch.profiler`, over `iters`. Unlike CUDA
-    events around back-to-back calls, this leaves out the host's time to
-    enqueue them."""
-    return sum(ms for ms, _ in _device_by_kernel(fn, iters).values())
+    `iters` calls ran, from `torch.profiler`. Unlike CUDA events around
+    back-to-back calls, this leaves out the host's time to enqueue them.
+    The profiler can lose a few events under load (never add one), so each
+    kernel counts as its mean duration times its launches per call rounded
+    to a whole number."""
+    return sum(ms / n * max(1, round(n)) for ms, n in _device_by_kernel(fn, iters).values())
+
+
+def _span_ms(fn, iters: int) -> float:
+    """The device's span per call with the host ahead: `iters` calls queued
+    behind a ~50 ms device sleep, timed with CUDA events (kernels and the
+    gaps between them, none of the host's enqueue)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _interleaved(kernel, plain, iters: int, plain_iters: int, warmup: int = 3,
@@ -343,26 +400,25 @@ def check_deterministic(cfg, w, pos: int, gen, kv8: bool, label: str):
 
 
 def time_step_positions(cfg, w, gen, card, kv8: bool = False):
-    """Talker step at ATTN_TIMED positions over a random cache: device ms
-    (profiler) and its attention stage's us per layer, the kernels a step
-    launches, back-to-back call ms (CUDA events) and the bound."""
+    """Talker step at STEP_TIMED positions over a random cache, the same
+    row each call (so each call also fills the positions array): the
+    device's span with the host ahead (CUDA events; the step kernel and
+    the small fill kernel), the kernels the profiler saw a call,
+    back-to-back call ms, and the bound."""
     import torch
     from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
 
     out = {}
-    for pos in ATTN_TIMED:
+    for pos in STEP_TIMED:
         state = random_state(cfg, pos, gen, kv8)
         embed = torch.randn(cfg.hidden_size, generator=gen, device="cuda")
         mp = [pos] * len(cfg.mrope_section)
         step = lambda: megakernel_forward(cfg, w, state, embed, mrope_pos=mp)  # noqa: E731
-        parts = _device_by_kernel(step, 10)
-        attn_ms, attn_n = parts["attention_step"]
-        # one attention launch a layer: the profiler may lose a few events
-        # under load, never add one, so the count is a ceiling
-        assert 0 < attn_n <= cfg.num_layers, parts
-        res = {"device_ms": sum(v[0] for v in parts.values()),
-               "attention_us_per_layer": attn_ms / attn_n * 1e3,
-               "kernels_per_step": sum(v[1] for v in parts.values()),
+        counts = _kernels_seen(step, 10)
+        # one step kernel a call (and the positions fill): never more
+        assert set(counts) <= {"decode_persistent", "set_ints"} and all(
+            n <= 1 for n in counts.values()), counts
+        res = {"device_span_ms": _span_ms(step, 10), "kernels_per_call_seen": counts,
                "call_ms": _time_ms(step, 20)}
         res["bound_ms"], res["bound_by"] = _bound_ms(*step_cost(cfg, w, pos, True, kv8))
         out[pos] = res
@@ -370,6 +426,39 @@ def time_step_positions(cfg, w, gen, card, kv8: bool = False):
               f"{json.dumps(res)} {card}")
         del state
     return out
+
+
+def kernels_per_step(cfg, w, state, talker: bool, label: str):
+    """20 consecutive decode steps from the state's position under the
+    profiler: the step kernel's launches a step as it counts them itself
+    in its workspace (exactly 1), and the kernels the profiler saw, by
+    name (the step kernel and nothing else: the position array advances
+    inside the kernel), from a run in which it saw at least one. The
+    profiler's own count is a ceiling: it loses events under load."""
+    import torch
+    from qwen_tts_tpu_torch.ops import decode_step
+    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
+
+    embed = torch.randn(cfg.hidden_size, device="cuda")
+    box = [state]
+
+    def step():
+        pos = box[0].position
+        mp = [pos] * len(cfg.mrope_section) if talker else None
+        box[0], _, _ = megakernel_forward(cfg, w, box[0], embed, mrope_pos=mp, with_head=talker)
+
+    step()  # the positions array now holds the next step's positions
+    n0 = decode_step.device_launches(cfg, embed.device)
+    counts = {}
+    for tries in range(1, 6):  # each try: 21 steps
+        counts = {k: v[1] for k, v in _kernel_counts(step, 20).items()}
+        if counts:
+            break
+    per_step = (decode_step.device_launches(cfg, embed.device) - n0) / (21 * tries)
+    print(f"kernels per decode step [{label}]: the step kernel's own count {per_step}; the "
+          f"profiler saw {json.dumps(counts)}")
+    assert per_step == 1 and counts and set(counts) <= {"decode_persistent"}, (per_step, counts)
+    return per_step
 
 
 def time_steps(cfg, w, ctx, with_head: bool, iters: int):
@@ -683,11 +772,14 @@ def time_attention(cfg, ctx, card):
 
 def time_generate(cfg, w, card, kv8: bool = False, label: str = "bf16"):
     """Phases 8 and 12: one N-step call (N = 64) beside its plain version,
-    and N = 256 from position 0 as tokens/s beside the decode-step host
-    loop, with the device's busy time per step."""
+    the kernels an 8-step call launches, and N = 256 from position 0 as
+    tokens/s beside the decode-step host loop, with the device's span per
+    step (the call with the host ahead) and its idle share while the call
+    runs."""
     import torch
     from qwen_tts_tpu_torch.core.config import CODEC_BOS
     from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.ops.decode_step import device_launches
     from qwen_tts_tpu_torch.ops.generate_kernel import (
         generate_megakernel,
         generate_megakernel_reference,
@@ -711,18 +803,36 @@ def time_generate(cfg, w, card, kv8: bool = False, label: str = "bf16"):
     print(f"generate [{label}], {GEN_STEPS} steps from position 0: kernel {k_ms:.4f} ms, "
           f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) {card}")
 
+    n0 = device_launches(cfg, w.embed.device)
+    counts, calls = {}, 0
+    for _ in range(5):  # each try: 6 calls, until the profiler saw a kernel
+        counts = {k: v[1] for k, v in _kernel_counts(
+            lambda: generate_megakernel(cfg, w, state, first, 8, starts), 5).items()}
+        calls += 6
+        if counts:
+            break
+    per_call = (device_launches(cfg, w.embed.device) - n0) / calls
+    print(f"generate [{label}], kernels an 8-step call launches: the kernel's own count "
+          f"{per_call}; the profiler saw {json.dumps(counts)}")
+    # the step kernel, at most once a call, and the fill of the positions
+    # array (each call starts from the same position): nothing else
+    assert per_call == 1 and counts and set(counts) <= {"decode_persistent", "set_ints"} and \
+        counts.get("decode_persistent", 0) <= 1, (per_call, counts)
+
     n = GEN_TIMED_STEPS
     call = lambda: generate_megakernel(cfg, w, state, first, n, starts)  # noqa: E731
     loop = lambda: generate_loop(cfg, w, state, CODEC_BOS, n, starts)  # noqa: E731
     g_ms, l_ms = _interleaved(call, loop, 2, 2, warmup=1)
-    busy_ms = _device_ms(call, 1)
+    span_ms = _span_ms(call, 1)
     nbytes = sum(step_cost(cfg, w, i, True, kv8)[0] for i in range(n))
     b_ms256 = nbytes / HBM_BYTES_PER_S * 1e3
     tok_s = {"generate_tok_s": n / g_ms * 1e3, "decode_step_loop_tok_s": n / l_ms * 1e3,
-             "bound_tok_s": n / b_ms256 * 1e3, "device_busy_ms_per_step": busy_ms / n,
-             "bound_ms_per_step": b_ms256 / n}
+             "bound_tok_s": n / b_ms256 * 1e3, "device_span_ms_per_step": span_ms / n,
+             "device_idle_share": max(0.0, 1 - span_ms / g_ms), "bound_ms_per_step": b_ms256 / n,
+             "kernels_per_call": per_call}
     print(f"generate [{label}], {n} steps from position 0: {g_ms / n:.4f} ms/step = "
-          f"{tok_s['generate_tok_s']:.1f} tok/s (device busy {busy_ms / n:.4f} ms/step); "
+          f"{tok_s['generate_tok_s']:.1f} tok/s (device span {span_ms / n:.4f} ms/step, idle "
+          f"share {tok_s['device_idle_share']:.4f}); "
           f"decode-step host loop {l_ms / n:.4f} ms/step = "
           f"{tok_s['decode_step_loop_tok_s']:.1f} tok/s; weight-bandwidth bound "
           f"{b_ms256 / n:.4f} ms/step = {tok_s['bound_tok_s']:.1f} tok/s {card}")
@@ -780,6 +890,12 @@ def main() -> int:
     tw, cw = eng.weights.talker, eng.weights.code_predictor.decoder
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 7)
+    grid = {"talker": decode_step.launch_info(mc.talker, tw, init_state(mc.talker, "cuda")),
+            "talker_kv8": decode_step.launch_info(
+                mc.talker, tw, init_state(mc.talker, "cuda", torch.int8)),
+            "code_predictor": decode_step.launch_info(
+                mc.code_predictor, cw, init_state(mc.code_predictor, "cuda"), with_head=False)}
+    print(f"decode-step kernel, persistent grid (one launch a step): {json.dumps(grid)} {card}")
     errs, ctx = [], {}
     for pos in STEP_POSITIONS:
         res, c = compare_kernel(mc.talker, tw, pos, True, gen, mrope=True)
@@ -817,18 +933,27 @@ def main() -> int:
     # ── phase 4: decode-step timings ──
     t_k, t_p = time_steps(mc.talker, tw, ctx["talker"], True, 50)
     sk, _, embed, _, _, mp = ctx["talker"]
-    t_dev = _device_ms(lambda: decode_step.megakernel_forward(mc.talker, tw, sk, embed,
-                                                               mrope_pos=mp), 20)
+    t_dev = _span_ms(lambda: decode_step.megakernel_forward(mc.talker, tw, sk, embed,
+                                                             mrope_pos=mp), 20)
     c_k, c_p = time_steps(mc.code_predictor, cw, ctx["cp"], False, 100)
     csk, _, cembed, _, _, _ = ctx["cp"]
-    c_dev = _device_ms(lambda: decode_step.megakernel_forward(
-        mc.code_predictor, cw, csk, cembed, with_head=False), 50)
+    c_step = lambda: decode_step.megakernel_forward(  # noqa: E731
+        mc.code_predictor, cw, csk, cembed, with_head=False)
+    c_dev = _span_ms(c_step, 50)
+    per_step = {"talker": kernels_per_step(mc.talker, tw, random_state(mc.talker, 300, gen),
+                                           True, "talker bf16, bf16 cache"),
+                "talker_kv8": kernels_per_step(mc.talker, tw,
+                                               random_state(mc.talker, 300, gen, kv8=True),
+                                               True, "talker bf16, int8 cache"),
+                "cp": kernels_per_step(mc.code_predictor, cw,
+                                       random_state(mc.code_predictor, 2, gen), False,
+                                       "code predictor bf16")}
     t_b, t_by = _bound_ms(*step_cost(mc.talker, tw, 300, True))
     c_b, _ = _bound_ms(*step_cost(mc.code_predictor, cw, 14, False))
-    print(f"talker step (pos 300): kernel {t_k:.4f} ms (device {t_dev:.4f} ms), plain "
+    print(f"talker step (pos 300): kernel {t_k:.4f} ms (device span {t_dev:.4f} ms), plain "
           f"{t_p:.4f} ms, bound {t_b:.4f} ms ({t_by}) {card}")
-    print(f"code-predictor step (pos 14): kernel {c_k:.4f} ms (device {c_dev:.4f} ms), "
-          f"plain {c_p:.4f} ms, bound {c_b:.4f} ms {card}")
+    print(f"code-predictor step (pos 14): kernel {c_k:.4f} ms (device span with the host "
+          f"ahead {c_dev:.4f} ms), plain {c_p:.4f} ms, bound {c_b:.4f} ms {card}")
     step_pos = time_step_positions(mc.talker, tw, gen, card)
     for s in stats:
         print("request", json.dumps(s), card)
@@ -976,16 +1101,23 @@ def main() -> int:
         tctx, cctx = qctx[(label, "talker")], qctx[(label, "cp")]
         k_ms, p_ms = time_steps(mc.talker, qt, tctx, True, 50)
         sk, _, embed, _, _, mp = tctx
-        d_ms = _device_ms(lambda: decode_step.megakernel_forward(
+        d_ms = _span_ms(lambda: decode_step.megakernel_forward(
             mc.talker, qt, sk, embed, mrope_pos=mp), 20)
         ck_ms, cp_ms = time_steps(mc.code_predictor, qc, cctx, False, 100)
         csk, _, cembed, _, _, _ = cctx
-        cd_ms = _device_ms(lambda: decode_step.megakernel_forward(
+        cd_ms = _span_ms(lambda: decode_step.megakernel_forward(
             mc.code_predictor, qc, csk, cembed, with_head=False), 50)
+        per_step[label] = kernels_per_step(mc.talker, qt, random_state(mc.talker, 300, gen, True),
+                                           True, f"talker {label}, int8 cache")
+        per_step[f"{label}_bf16_cache"] = kernels_per_step(
+            mc.talker, qt, random_state(mc.talker, 300, gen), True, f"talker {label}, bf16 cache")
+        per_step[f"{label}_cp"] = kernels_per_step(
+            mc.code_predictor, qc, random_state(mc.code_predictor, 2, gen), False,
+            f"code predictor {label}")
         b_ms, b_by = _bound_ms(*step_cost(mc.talker, qt, 300, True, kv8=True))
         cb_ms, _ = _bound_ms(*step_cost(mc.code_predictor, qc, 14, False))
-        qt_t[label] = {"ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "cp_ms": ck_ms, "cp_device_ms": cd_ms,
+        qt_t[label] = {"ms": k_ms, "device_span_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "cp_ms": ck_ms, "cp_device_span_ms": cd_ms,
                        "cp_plain_ms": cp_ms, "cp_bound_ms": cb_ms}
         print(f"talker step [{label}+kv8] (pos 300): kernel {k_ms:.4f} ms (device {d_ms:.4f} "
               f"ms), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); code-predictor step "
@@ -1014,8 +1146,10 @@ def main() -> int:
          "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
          "launches": launches["decode_step"], "max_abs_err": max(errs),
          "ms": t_k, "plain_ms": t_p, "bound_ms": t_b, "bound_by": t_by, "library_ms": None,
-         "device_ms": t_dev, "cp_ms": c_k, "cp_device_ms": c_dev, "cp_plain_ms": c_p,
-         "cp_bound_ms": c_b, "by_position": {str(p): v for p, v in step_pos.items()}},
+         "device_span_ms": t_dev, "cp_ms": c_k, "cp_device_span_ms": c_dev, "cp_plain_ms": c_p,
+         "cp_bound_ms": c_b,
+         "by_position": {str(p): v for p, v in step_pos.items()},
+         "kernels_per_step": per_step, "grid": grid},
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",
@@ -1033,7 +1167,9 @@ def main() -> int:
          "tok_s_256": gen_t["generate_tok_s"],
          "decode_step_loop_tok_s_256": gen_t["decode_step_loop_tok_s"],
          "bound_tok_s_256": gen_t["bound_tok_s"],
-         "device_busy_ms_per_step_256": gen_t["device_busy_ms_per_step"]},
+         "device_span_ms_per_step_256": gen_t["device_span_ms_per_step"],
+         "device_idle_share_256": gen_t["device_idle_share"],
+         "kernels_per_call": gen_t["kernels_per_call"]},
         *[{"name": f"decode_step[{q}+kv8]", "route": "cuda",
            "source": "qwen_tts_tpu_torch/csrc/decode_layer.cuh",
            "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
@@ -1048,10 +1184,12 @@ def main() -> int:
            "launches": glaunch[q], "max_abs_err": gerr[q], "ms": qgen_t[q]["ms"],
            "plain_ms": qgen_t[q]["plain_ms"], "bound_ms": qgen_t[q]["bound_ms"],
            "bound_by": qgen_t[q]["bound_by"], "library_ms": None, "steps": GEN_STEPS,
-           "device_ms": qgen_t[q]["device_busy_ms_per_step"] * GEN_TIMED_STEPS,
+           "device_span_ms_256": qgen_t[q]["device_span_ms_per_step"] * GEN_TIMED_STEPS,
            "tok_s_256": qgen_t[q]["generate_tok_s"],
            "bound_tok_s_256": qgen_t[q]["bound_tok_s"],
-           "device_busy_ms_per_step_256": qgen_t[q]["device_busy_ms_per_step"],
+           "device_span_ms_per_step_256": qgen_t[q]["device_span_ms_per_step"],
+           "device_idle_share_256": qgen_t[q]["device_idle_share"],
+           "kernels_per_call": qgen_t[q]["kernels_per_call"],
            "bound_ms_per_step_256": qgen_t[q]["bound_ms_per_step"]}
           for q in GEN_FORMS],
     ]}))

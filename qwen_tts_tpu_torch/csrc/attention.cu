@@ -39,10 +39,11 @@ decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ out) {
   __shared__ AttnShared sh;
   extern __shared__ __align__(16) char attn_stages[];
-  const int h = blockIdx.x / cg::this_cluster().num_blocks();
+  const int nb = (int)cg::this_cluster().num_blocks();
+  const int h = blockIdx.x / nb, rank = (int)cg::this_cluster().block_rank();
   const bf16* kh = k_layer + (size_t)h * S * kAttnD;
   const bf16* vh = v_layer + (size_t)h * S * kAttnD;
-  attn_start(sh, attn_stages, kh, vh, nullptr, nullptr, pos, tpb);
+  attn_start(sh, attn_stages, kh, vh, nullptr, nullptr, pos, tpb, rank);
   for (int i = threadIdx.x; i < (G + 2) * kAttnD; i += kAttnThreads) {
     const int r = i / kAttnD, d = i % kAttnD;
     sh.vecs[r][d] = r < G ? q[(size_t)(h * G + r) * kAttnD + d]
@@ -50,7 +51,7 @@ decode_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
   __syncthreads();
   attend_cluster<bf16, KG>(sh, attn_stages, kh, vh, nullptr, nullptr, G, pos, tpb,
-                           out + (size_t)h * G * kAttnD);
+                           out + (size_t)h * G * kAttnD, rank, nb);
 }
 
 template <int KG>

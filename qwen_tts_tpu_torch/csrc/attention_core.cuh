@@ -58,7 +58,14 @@
 //    other blocks' partials through distributed shared memory in rank
 //    order, adds the in-flight column last and divides; a second
 //    cluster.sync() keeps the partials alive until it is done. No second
-//    launch, no workspace, no atomics: the same bits on every run.
+//    launch, no workspace, no atomics: the same bits on every run. The
+//    decode step's persistent kernel, whose kv heads' blocks are not
+//    clusters, merges the same way through device memory instead: each
+//    block stores its partials (rank 0 also the in-flight column) and
+//    counts itself in with an integer atomic, and each block of the next
+//    stage that needs the head's output waits for the count and merges the
+//    partials itself (merge_global), in rank order: one hop through L2
+//    instead of a merging block's two.
 //
 // Replaces the earlier designs: a standalone kernel of two launches (256-row
 // chunk blocks writing partials to a workspace, then a merge), and a decode
@@ -123,6 +130,20 @@ struct __align__(16) AttnShared {
   float blk_l[kAttnMaxCluster][kAttnMaxG];
   float col_p[kAttnMaxG];
   float den[kAttnMaxG];
+};
+
+// The partials of one kv head's blocks in device memory, for a merge
+// through global memory (the decode step's attention stage, whose blocks
+// are not one cluster): m, l [nb][G], acc [nb][G][D], the in-flight
+// column's scores col_s [G] and values col_v [D], and the count of block
+// partials written, which only grows.
+struct AttnGlobal {
+  float* m;
+  float* l;
+  float* acc;
+  float* col_s;
+  float* col_v;
+  unsigned* count;
 };
 
 template <typename CacheT>
@@ -260,10 +281,11 @@ __device__ __forceinline__ void attn_load_tile(char* st, uint64_t* bar, const Ca
   }
 }
 
-// The block's 64-row tiles of the prefix: [*b0, *b0 + *n).
-__device__ __forceinline__ void attn_tiles(int pos, int tpb, int* b0, int* n) {
+// The 64-row tiles of the prefix that block `rank` of a kv head takes:
+// [*b0, *b0 + *n).
+__device__ __forceinline__ void attn_tiles(int pos, int tpb, int rank, int* b0, int* n) {
   const int nt = (pos + kAttnTile - 1) / kAttnTile;
-  *b0 = min(nt, (int)cg::this_cluster().block_rank() * tpb);
+  *b0 = min(nt, rank * tpb);
   *n = min(nt, *b0 + tpb) - *b0;
 }
 
@@ -275,10 +297,10 @@ __device__ __forceinline__ void attn_tiles(int pos, int tpb, int* b0, int* n) {
 template <typename CacheT>
 __device__ __forceinline__ void attn_start(AttnShared& sh, char* stages, const CacheT* kh,
                                            const CacheT* vh, const float* ksh,
-                                           const float* vsh, int pos, int tpb) {
+                                           const float* vsh, int pos, int tpb, int rank) {
   if (threadIdx.x != 0) return;
   int b0, n;
-  attn_tiles(pos, tpb, &b0, &n);
+  attn_tiles(pos, tpb, rank, &b0, &n);
 #pragma unroll
   for (int i = 0; i < kAttnStages; ++i) mbar_init(&sh.bar[i], 1);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -287,29 +309,127 @@ __device__ __forceinline__ void attn_start(AttnShared& sh, char* stages, const C
                    b0 + i, pos);
 }
 
+// Rank 0's merge of a kv head's nb block partials (max m, sum l and the
+// p x V sums acc of each of its G q heads, read through the loaders), in
+// rank order, then the in-flight column (its score s_new and v in
+// sh.vecs[G + 1]); writes out[g * D + d].
+template <typename LoadM, typename LoadL, typename LoadAcc, typename OutT>
+__device__ __forceinline__ void merge_blocks(AttnShared& sh, int nb, int G, const LoadM& load_m,
+                                             const LoadL& load_l, const LoadAcc& load_acc,
+                                             OutT* __restrict__ out) {
+  constexpr int D = kAttnD;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < nb * G; i += kAttnThreads) {  // every block's (m, l)
+    const int b = i / G, g = i % G;
+    sh.blk_w[b][g] = load_m(b, g);
+    sh.blk_l[b][g] = load_l(b, g);
+  }
+  __syncthreads();
+  if (tid < G) {  // q head g's block weights, the column's and the sum
+    const int g = tid;
+    float mx = sh.s_new[g];
+    for (int b = 0; b < nb; ++b) mx = fmaxf(mx, sh.blk_w[b][g]);
+    float den = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      const float w = expf(sh.blk_w[b][g] - mx);  // 0 for a block with no rows
+      sh.blk_w[b][g] = w;
+      den = fmaf(sh.blk_l[b][g], w, den);
+    }
+    const float p_new = expf(sh.s_new[g] - mx);
+    sh.col_p[g] = p_new;
+    sh.den[g] = den + p_new;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kAttnThreads) {
+    const int g = i / D, d = i % D;
+    float a[kAttnMaxCluster];  // every block's loads in flight at once
+#pragma unroll
+    for (int b = 0; b < kAttnMaxCluster; ++b) a[b] = b < nb ? load_acc(b, i) : 0.f;
+    float num = 0.f;
+#pragma unroll
+    for (int b = 0; b < kAttnMaxCluster; ++b)
+      if (b < nb) num = fmaf(a[b], sh.blk_w[b][g], num);
+    num = fmaf(sh.col_p[g], sh.vecs[G + 1][d], num);
+    attn_store(out + i, num / sh.den[g]);
+  }
+}
+
+// The merge of merge_blocks from device memory: kv head gm's nb block
+// partials and its in-flight column, which the head's blocks have all
+// written (the caller waited for their count), with every load in flight
+// at once; writes out[g * D + d] rounded to bf16, as f32. The same
+// arithmetic as merge_blocks. Every thread of the block calls it.
+__device__ __forceinline__ void merge_global(AttnShared& sh, int nb, int G, const AttnGlobal& gm,
+                                             float* out) {
+  constexpr int D = kAttnD;
+  const int tid = threadIdx.x;
+  float a[kAttnMaxCluster];  // this thread's first output's block sums
+#pragma unroll
+  for (int b = 0; b < kAttnMaxCluster; ++b)
+    a[b] = b < nb && tid < G * D ? __ldcg(gm.acc + b * G * D + tid) : 0.f;
+  for (int i = tid; i < nb * G; i += kAttnThreads) {
+    sh.blk_w[i / G][i % G] = __ldcg(gm.m + i);
+    sh.blk_l[i / G][i % G] = __ldcg(gm.l + i);
+  }
+  if (tid < G) sh.s_new[tid] = __ldcg(gm.col_s + tid);
+  for (int d = tid; d < D; d += kAttnThreads) sh.vecs[G + 1][d] = __ldcg(gm.col_v + d);
+  __syncthreads();
+  if (tid < G) {  // q head g's block weights, the column's and the sum
+    const int g = tid;
+    float mx = sh.s_new[g];
+    for (int b = 0; b < nb; ++b) mx = fmaxf(mx, sh.blk_w[b][g]);
+    float den = 0.f;
+    for (int b = 0; b < nb; ++b) {
+      const float w = expf(sh.blk_w[b][g] - mx);  // 0 for a block with no rows
+      sh.blk_w[b][g] = w;
+      den = fmaf(sh.blk_l[b][g], w, den);
+    }
+    const float p_new = expf(sh.s_new[g] - mx);
+    sh.col_p[g] = p_new;
+    sh.den[g] = den + p_new;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kAttnThreads) {
+    const int g = i / D, d = i % D;
+    if (i != tid) {
+#pragma unroll
+      for (int b = 0; b < kAttnMaxCluster; ++b) a[b] = b < nb ? __ldcg(gm.acc + b * G * D + i) : 0.f;
+    }
+    float num = 0.f;
+#pragma unroll
+    for (int b = 0; b < kAttnMaxCluster; ++b)
+      if (b < nb) num = fmaf(a[b], sh.blk_w[b][g], num);
+    num = fmaf(sh.col_p[g], sh.vecs[G + 1][d], num);
+    out[i] = __bfloat162float(__float2bfloat16(num / sh.den[g]));
+  }
+}
+
 // The core. On entry attn_start has run, sh.vecs holds q_0..q_{G-1},
 // k_new, v_new of kv head h (f32) and every thread of the block has passed
 // a __syncthreads() since both. kh / vh are kv head h's cache rows [S, D] of this
 // layer, ksh / vsh its row scales [S] (int8 cache) or null. The block is
-// rank `rank` of a cluster of nb blocks; it takes the 64-row tiles
-// [rank * tpb, (rank + 1) * tpb) of the prefix. Rank 0 writes out[g * D +
-// d] for the G q heads. KG is G when G is 1 or 2 (the talker's and the
+// rank `rank` of the nb blocks of its kv head, a cluster (gm null) or any
+// nb blocks of the grid that merge through device memory (gm set: the
+// head's AttnGlobal); it takes the 64-row tiles [rank * tpb, (rank + 1) *
+// tpb) of the prefix. Rank 0 writes out[g * D + d] for the G q heads and
+// returns true (the others false); with gm, every block stores its
+// partials there and counts itself in, and none writes out (the readers
+// merge with merge_global). KG is G when G is 1 or 2 (the talker's and the
 // code predictor's), known at compile time, and 8 for any other G (q and
 // the p x V sums live in registers, KG of each). Every thread of every
 // block of the cluster must call it.
 template <typename CacheT, int KG, typename OutT>
-__device__ void attend_cluster(AttnShared& sh, char* stages, const CacheT* __restrict__ kh,
+__device__ bool attend_cluster(AttnShared& sh, char* stages, const CacheT* __restrict__ kh,
                                const CacheT* __restrict__ vh, const float* __restrict__ ksh,
                                const float* __restrict__ vsh, int g_in, int pos, int tpb,
-                               OutT* __restrict__ out) {
+                               OutT* __restrict__ out, int rank, int nb,
+                               const AttnGlobal* gm = nullptr) {
   constexpr bool kKv8 = sizeof(CacheT) == 1;
   constexpr int D = kAttnD;
   constexpr int kTileBytes = kAttnTile * D * (int)sizeof(CacheT);
   constexpr int kStageBytes = attn_stage_bytes<CacheT>();
   static_assert(kAttnWarps * KG * D * (int)sizeof(float) <= kAttnStages * kStageBytes,
                 "after the tile loop the ring holds the warps' p x V sums");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank(), nb = (int)cluster.num_blocks();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float scale = rsqrtf((float)D);
   const int G = KG <= 2 ? KG : g_in;
@@ -322,7 +442,7 @@ __device__ void attend_cluster(AttnShared& sh, char* stages, const CacheT* __res
   }
 
   int b0, n;
-  attn_tiles(pos, tpb, &b0, &n);
+  attn_tiles(pos, tpb, rank, &b0, &n);
 
   // Warp w takes rows 4w..4w+3 and 32+4w..32+4w+3 of every tile (so that a
   // short prefix spreads over the warps): it scores them in two passes of
@@ -456,7 +576,7 @@ __device__ void attend_cluster(AttnShared& sh, char* stages, const CacheT* __res
     }
   }
   __syncthreads();
-  if (nb == 1) {  // one block a kv head: finish here, the column last
+  if (nb == 1 && gm == nullptr) {  // one block a kv head: finish here, the column last
     if (tid < G) {
       const int g = tid;
       float mx = sh.s_new[g];
@@ -480,7 +600,7 @@ __device__ void attend_cluster(AttnShared& sh, char* stages, const CacheT* __res
       num = fmaf(sh.col_p[g], sh.vecs[G + 1][i % D], num);
       attn_store(out + i, num / sh.den[g]);
     }
-    return;
+    return true;
   }
   if (tid < G) {  // the block's max and sum of q head g, and each warp's weight
     const int g = tid;
@@ -502,47 +622,34 @@ __device__ void attend_cluster(AttnShared& sh, char* stages, const CacheT* __res
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < kAttnWarps; ++w) a = fmaf(red[w * G * D + i], sh.warp_w[w][g], a);
-    sh.part_acc[g][i % D] = a;
+    if (gm != nullptr)
+      gm->acc[rank * G * D + i] = a;
+    else
+      sh.part_acc[g][i % D] = a;
   }
+  if (gm != nullptr) {  // through device memory: the readers merge
+    if (tid < G) {
+      gm->m[rank * G + tid] = sh.part_m[tid];
+      gm->l[rank * G + tid] = sh.part_l[tid];
+    }
+    if (rank == 0) {
+      if (tid < G) gm->col_s[tid] = sh.s_new[tid];
+      for (int d = tid; d < D; d += kAttnThreads) gm->col_v[d] = sh.vecs[G + 1][d];
+    }
+    __syncthreads();  // the block's stores, then thread 0's release
+    if (tid == 0)
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(gm->count) : "memory");
+    return false;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-
-  if (rank == 0) {  // merge the blocks in rank order, then the column
-    for (int i = tid; i < nb * G; i += kAttnThreads) {  // every block's (m, l)
-      const int b = i / G, g = i % G;
-      sh.blk_w[b][g] = cluster.map_shared_rank(sh.part_m, b)[g];
-      sh.blk_l[b][g] = cluster.map_shared_rank(sh.part_l, b)[g];
-    }
-    __syncthreads();
-    if (tid < G) {  // q head g's block weights, the column's and the sum
-      const int g = tid;
-      float mx = sh.s_new[g];
-      for (int b = 0; b < nb; ++b) mx = fmaxf(mx, sh.blk_w[b][g]);
-      float den = 0.f;
-      for (int b = 0; b < nb; ++b) {
-        const float w = expf(sh.blk_w[b][g] - mx);  // 0 for a block with no rows
-        sh.blk_w[b][g] = w;
-        den = fmaf(sh.blk_l[b][g], w, den);
-      }
-      const float p_new = expf(sh.s_new[g] - mx);
-      sh.col_p[g] = p_new;
-      sh.den[g] = den + p_new;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += kAttnThreads) {
-      const int g = i / D, d = i % D;
-      float a[kAttnMaxCluster];  // every block's loads in flight at once
-#pragma unroll
-      for (int b = 0; b < kAttnMaxCluster; ++b)
-        a[b] = b < nb ? cluster.map_shared_rank(&sh.part_acc[0][0], b)[i] : 0.f;
-      float num = 0.f;
-#pragma unroll
-      for (int b = 0; b < kAttnMaxCluster; ++b)
-        if (b < nb) num = fmaf(a[b], sh.blk_w[b][g], num);
-      num = fmaf(sh.col_p[g], sh.vecs[G + 1][d], num);
-      attn_store(out + i, num / sh.den[g]);
-    }
-  }
+  if (rank == 0)
+    merge_blocks(
+        sh, nb, G, [&](int b, int g) { return cluster.map_shared_rank(sh.part_m, b)[g]; },
+        [&](int b, int g) { return cluster.map_shared_rank(sh.part_l, b)[g]; },
+        [&](int b, int i) { return cluster.map_shared_rank(&sh.part_acc[0][0], b)[i]; }, out);
   cluster.sync();  // the partials stay in shared memory until rank 0 has read them
+  return rank == 0;
 }
 
 // Blocks per kv head at this prefix length, and the 64-row tiles each takes

@@ -274,9 +274,10 @@ class TTSEngine:
 
     def _generate_chunks(self, text: str, chunk_size: int, with_audio: bool):
         """Yield (audio f32 or None, frames) per chunk: 1 frame, then
-        `chunk_size`. A full chunk's audio is its own vocoder decode; a
-        chunk cut short by EOS or the cap is re-decoded from its kept
-        frames through `_decode_to_audio`, as in the JAX engine."""
+        `chunk_size`. A full chunk of a bucket's length (1 or
+        `chunk_frames`) is its own vocoder decode; any other chunk, of
+        another size or cut short by EOS or the cap, is decoded from its
+        kept frames through `_decode_to_audio`, as in the JAX engine."""
         cfg, mc = self.config, self.model_config
         hop = self.vocoder_config.hop_length
         content = encode_tts_prompt(self.tokenizer, text)[3:]
@@ -302,8 +303,11 @@ class TTSEngine:
                 attn_impl=self._attn_impl, mrope_deltas=self._mrope_deltas)
             self._talker_steps += n_run
             self._cp_steps += n_run * cp_steps_per_frame
+            # a full chunk whose length is its own vocoder bucket decodes on
+            # the device at once; any other goes through the bucket padding
+            direct = with_audio and n_run == n and self._bucket(n) == n
             audio = None
-            if with_audio and n_run == n:
+            if direct:
                 audio = vocoder_decode(self.vocoder_config, self.vocoder_weights, codes)
             codes_np = codes.cpu().numpy().astype(np.int32)
             keep = int(valid.cpu().sum())
@@ -311,7 +315,11 @@ class TTSEngine:
             self._frames_generated = base + keep
             self._talker_state = state
             if keep == n:
-                yield (None if audio is None else audio.cpu().numpy()[: n * hop]), frames
+                if direct:
+                    audio = audio.cpu().numpy()[: n * hop]
+                elif with_audio:
+                    audio = self._decode_to_audio(frames)[0]
+                yield audio, frames
             else:
                 if keep > 0:
                     yield (self._decode_to_audio(frames)[0] if with_audio else None), frames
@@ -320,6 +328,16 @@ class TTSEngine:
 
     # ── vocoder ──────────────────────────────────────────────────────────
 
+    def _bucket(self, T: int) -> int:
+        """The vocoder's frame count for T frames: 1, chunk_frames, 2 x
+        chunk_frames, ... (JAX `_decode_to_audio`)."""
+        bucket = 1
+        if T > 1:
+            bucket = self.config.chunk_frames
+            while bucket < T:
+                bucket *= 2
+        return bucket
+
     def _decode_to_audio(self, frames: list[np.ndarray]) -> tuple[np.ndarray, int]:
         """Frames → waveform, the frame count repeat-padded (last frame) up
         to a bucket {1, chunk_frames, 2×chunk_frames, ...} and the result
@@ -327,11 +345,7 @@ class TTSEngine:
         if not frames:
             return np.array([], dtype=np.float32), self.sample_rate
         T = len(frames)
-        bucket = 1
-        if T > 1:
-            bucket = self.config.chunk_frames
-            while bucket < T:
-                bucket *= 2
+        bucket = self._bucket(T)
         stacked = np.stack(frames)
         codes = np.broadcast_to(stacked[-1], (bucket, stacked.shape[1])).copy()
         codes[:T] = stacked

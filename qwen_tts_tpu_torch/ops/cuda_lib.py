@@ -29,7 +29,9 @@ _lib: ctypes.CDLL | None = None
 build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas lines)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_I4 = ctypes.c_int * 4
+_IP = ctypes.POINTER(ctypes.c_int)
+MAX_SECTIONS = 8   # kQttsMaxSections in csrc/decode_layer.cuh
+_INTS = ctypes.c_int * (1 + MAX_SECTIONS)   # a position row: cache row + sections
 
 # Weight forms of one matrix (QttsMat::form in csrc/decode_layer.cuh).
 FORM_BF16, FORM_INT8, FORM_INT4 = 0, 1, 2
@@ -53,11 +55,13 @@ class QttsDecoder(ctypes.Structure):
 _DEC = ctypes.POINTER(QttsDecoder)
 _SIGNATURES = {
     "qtts_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
-    "qtts_decode_step": ([_DEC] + [_P] * 6 + [_I, _P], _I),
+    "qtts_stage_timers_offset": ([], ctypes.c_longlong),
+    "qtts_launch_count_offset": ([], ctypes.c_longlong),
+    "qtts_launch_info": ([_DEC, _IP], _I),
+    "qtts_set_positions": ([_P, _I, _IP, _P], _I),
+    "qtts_decode_step": ([_DEC] + [_P] * 4 + [_I, _I, _IP] + [_P] * 4, _I),
     "qtts_decode_attention": ([_P] * 6 + [_I] * 7 + [_P], _I),
-    "qtts_generate_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
-    "qtts_generate": ([_DEC] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 3
-                      + [ctypes.POINTER(ctypes.c_int)] * 2 + [_P], _I),
+    "qtts_generate": ([_DEC] + [_P] * 5 + [_I, _I, _IP, _P, _P, _I, _P], _I),
 }
 
 
@@ -109,6 +113,15 @@ def _build(so: Path) -> None:
     os.replace(tmp, so)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points `lib` has."""
+    for name, (args, res) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
     """Build `csrc/*.cu` into one library (once per source content) and load it."""
     global _lib
@@ -117,18 +130,16 @@ def load_library() -> ctypes.CDLL:
     so = BUILD_DIR / f"qtts_kernels_{_digest()}.so"
     if not so.exists():
         _build(so)
-    lib = ctypes.CDLL(str(so))
-    for name, (args, res) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = args, res
-    _lib = lib
-    return lib
+    _lib = bind(ctypes.CDLL(str(so)))
+    return _lib
 
 
-def int4(values) -> ctypes.Array:
-    """Up to four ints as a C int[4] (zero-padded)."""
-    vals = list(values)[:4]
-    return _I4(*vals, *([0] * (4 - len(vals))))
+def ints(values) -> ctypes.Array:
+    """Up to 1 + MAX_SECTIONS ints as a C int array (zero-padded)."""
+    vals = [int(v) for v in values]
+    if len(vals) > 1 + MAX_SECTIONS:
+        raise ValueError(f"at most {1 + MAX_SECTIONS} values: {vals}")
+    return _INTS(*vals, *([0] * (1 + MAX_SECTIONS - len(vals))))
 
 
 def check(name: str, err: int) -> None:

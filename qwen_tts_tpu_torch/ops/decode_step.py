@@ -14,13 +14,19 @@ cache (`models/decoder.py::init_state`).
 `megakernel_forward` dispatches on where the tensors are: on the CPU it
 runs `megakernel_forward_reference` (plain PyTorch, the same rounding
 points and the kernel's matrix product `mm_scaled`); on a CUDA device it
-launches `csrc/decode_step.cu` through ctypes, or raises. The kernel is
-built with the port's other kernels by `ops/cuda_lib.py` at first use.
+launches `csrc/decode_step.cu` (one persistent launch a step) through
+ctypes, or raises. The kernel reads the cache row and the M-RoPE section
+positions from a device array (`positions`), which each launch advances,
+and gathers its rope row from the tables itself, so consecutive steps need
+no host-to-device traffic and no host sync. It is built with the port's
+other kernels by `ops/cuda_lib.py` at first use.
 `megakernel_forward.launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+from collections import OrderedDict
 from typing import Sequence
 
 import torch
@@ -38,11 +44,13 @@ from .cuda_lib import (
     FORM_BF16,
     FORM_INT4,
     FORM_INT8,
+    MAX_SECTIONS,
     QttsDecoder,
     QttsMat,
     check,
     check_aligned,
     check_tensor,
+    ints,
     load_library,
     stream_of,
 )
@@ -151,6 +159,105 @@ def decoder_struct(kernel: str, cfg: DecoderConfig, w: DecoderWeights,
         L, H, I, cfg.num_q_heads, KVH, D, S, V, cfg.rms_eps)
 
 
+_WORKSPACES: dict[tuple, torch.Tensor] = {}
+_POSITIONS: OrderedDict[tuple, list] = OrderedDict()
+_MAX_POSITION_ARRAYS = 16
+
+
+def workspace(cfg: DecoderConfig, dev: torch.device) -> torch.Tensor:
+    """The kernels' scratch on `dev` for the current stream: zeroed once
+    (it holds the grid barrier's count, which each launch leaves set for the next)
+    and kept, grown for a wider decoder. Launches on one stream share it in
+    stream order."""
+    lib = load_library()
+    n = lib.qtts_workspace_bytes(cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
+                                 cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    key = (dev.index, stream_of(dev))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.uint8, device=dev)
+        _WORKSPACES[key] = ws
+    return ws
+
+
+def positions(state: DecodeState, values: Sequence[int], dev: torch.device):
+    """The device int32 array of this cache's positions, holding `values`
+    (the cache row, then the M-RoPE section positions) when the next launch
+    runs: each kernel launch advances the array by its steps, so
+    consecutive steps find it set, and only a jump (a new request, a
+    replayed position) costs one small fill launch. Returns the entry
+    `[tensor, values it will hold]`, which the caller advances after its
+    launch."""
+    lib = load_library()
+    key = (dev.index, stream_of(dev), state.k_cache.data_ptr())
+    entry = _POSITIONS.get(key)
+    if entry is None:
+        entry = [torch.zeros(1 + MAX_SECTIONS, dtype=torch.int32, device=dev), None]
+        _POSITIONS[key] = entry
+        while len(_POSITIONS) > _MAX_POSITION_ARRAYS:
+            _POSITIONS.popitem(last=False)
+    _POSITIONS.move_to_end(key)
+    values = tuple(int(v) for v in values)
+    if entry[1] != values:
+        err = lib.qtts_set_positions(entry[0].data_ptr(), len(values), ints(values),
+                                     stream_of(dev))
+        entry[1] = None if err else values
+        check("set_positions", err)
+    return entry
+
+
+def check_rope(kernel: str, cfg: DecoderConfig, w: DecoderWeights, firsts: Sequence[int],
+               steps: int, dev: torch.device) -> None:
+    """The rope tables on `dev` as the kernel reads them, and every row a
+    run of `steps` steps from the positions `firsts` reads inside them."""
+    rows, d2 = w.rope.cos.shape[0], cfg.head_dim // 2
+    for name, t in (("rope.cos", w.rope.cos), ("rope.sin", w.rope.sin)):
+        check_tensor(kernel, name, t, (rows, d2), torch.float32, dev)
+    if min(firsts) < 0 or max(firsts) + steps > rows:
+        raise ValueError(f"{kernel}: rope rows [{min(firsts)}, {max(firsts) + steps}) outside "
+                         f"the table's {rows} rows")
+
+
+def rope_spec(cfg: DecoderConfig, mrope_pos: Sequence[int] | None):
+    """(sections the kernel rotates by, interleaved flag): none for
+    standard RoPE (no M-RoPE config, or no section positions given)."""
+    secs = tuple(cfg.mrope_section or ()) if mrope_pos is not None else ()
+    if secs and len(mrope_pos) != len(secs):
+        raise ValueError(f"mrope_pos {list(mrope_pos)} needs one position per section {secs}")
+    if len(secs) > MAX_SECTIONS:
+        raise ValueError(f"the kernels take at most {MAX_SECTIONS} M-RoPE sections: {secs}")
+    return secs, int(bool(cfg.mrope_interleaved))
+
+
+def device_launches(cfg: DecoderConfig, dev: torch.device) -> int:
+    """The decode kernel's launches on `dev`'s current stream so far, as
+    the kernel counts them in its workspace (a device read: it waits for
+    the stream)."""
+    off = load_library().qtts_launch_count_offset()
+    return int(workspace(cfg, dev)[off:off + 8].view(torch.int64).item())
+
+
+def launch_info(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
+                with_head: bool = True) -> dict:
+    """The persistent grid the decode kernel takes for this decoder on its
+    device: blocks, blocks a kv head (at most 16 of them attend), the
+    card's cudaOccupancyMaxActiveBlocksPerMultiprocessor and SMs, dynamic
+    and static shared memory a block, registers a thread, and
+    cudaOccupancyMaxActiveClusters of the kernel in clusters of 8 and of 16
+    blocks (-1: the query was refused)."""
+    dev = w.embed.device
+    dec = decoder_struct("decode_step", cfg, w, state, dev, with_head)
+    out = (ctypes.c_int * 9)()
+    err = load_library().qtts_launch_info(dec, out)
+    info = dict(zip(("grid", "blocks_per_kv_head", "max_blocks_per_sm", "sms",
+                     "dynamic_smem", "static_smem", "registers", "max_active_clusters_8",
+                     "max_active_clusters_16"), list(out)))
+    if err:
+        raise RuntimeError(f"decode_step: no co-resident persistent grid ({info}), CUDA "
+                           f"error {err}")
+    return info
+
+
 def megakernel_forward(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
                        embed: torch.Tensor,
                        mrope_pos: Sequence[int] | None = None,
@@ -160,30 +267,32 @@ def megakernel_forward(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState
     pos = state.position
     if pos >= cfg.max_seq_len:
         raise ValueError(f"decode position {pos} >= max_seq_len {cfg.max_seq_len}")
-    cos, sin = rope_rows(cfg, w.rope, pos, 1, mrope_pos)
     dev = embed.device
     if dev.type == "cpu":
+        cos, sin = rope_rows(cfg, w.rope, pos, 1, mrope_pos)
         return megakernel_forward_reference(cfg, w, state, embed, cos, sin, with_head)
     if dev.type != "cuda":
         raise ValueError(f"decode_step: no kernel for device {dev}")
 
-    H, I, HQ, KVH, D, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
-                           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    H, V = cfg.hidden_size, cfg.vocab_size
     f32 = torch.float32
     embed = embed.to(f32).contiguous()
-    cos, sin = cos.reshape(D // 2).contiguous(), sin.reshape(D // 2).contiguous()
+    secs, interleaved = rope_spec(cfg, mrope_pos)
+    values = (pos, *mrope_pos) if secs else (pos,)
+    check_rope("decode_step", cfg, w, values[1:] if secs else values, 1, dev)
     dec = decoder_struct("decode_step", cfg, w, state, dev, with_head)
-    for name, t, n in (("embed", embed, H), ("cos", cos, D // 2), ("sin", sin, D // 2)):
-        check_tensor("decode_step", name, t, (n,), f32, dev)
+    check_tensor("decode_step", "embed", embed, (H,), f32, dev)
 
     lib = load_library()
-    ws = torch.empty(lib.qtts_workspace_bytes(H, I, HQ, KVH, D, V),
-                     dtype=torch.uint8, device=dev)
+    ws = workspace(cfg, dev)
+    pos_entry = positions(state, values, dev)
     normed = torch.empty(H, dtype=f32, device=dev)
     logits = torch.empty(V, dtype=f32, device=dev) if with_head else None
     err = lib.qtts_decode_step(
-        dec, embed.data_ptr(), cos.data_ptr(), sin.data_ptr(), normed.data_ptr(),
-        logits.data_ptr() if with_head else None, ws.data_ptr(), pos, stream_of(dev))
+        dec, embed.data_ptr(), w.rope.cos.data_ptr(), w.rope.sin.data_ptr(),
+        pos_entry[0].data_ptr(), len(secs), interleaved, ints(secs), normed.data_ptr(),
+        logits.data_ptr() if with_head else None, ws.data_ptr(), stream_of(dev))
+    pos_entry[1] = None if err else tuple(v + 1 for v in values)  # what the launch leaves
     check("decode_step", err)
     megakernel_forward.launches += 1
     return state._replace(position=pos + 1), logits, normed

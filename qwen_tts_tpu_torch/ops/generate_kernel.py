@@ -10,10 +10,12 @@ cache. Step n runs the talker's decode step at cache row
 `mrope_pos0[s] + n` (by default the cache position: standard RoPE).
 
 `generate_megakernel` dispatches on where the tensors are: on the CPU it
-runs `generate_megakernel_reference`; on a CUDA device it makes one C call
-to `csrc/generate.cu`, which enqueues all N steps with the token fed back
-on the device (no host sync between steps), or raises.
-`generate_megakernel.launches` counts those calls.
+runs `generate_megakernel_reference`; on a CUDA device it makes one launch
+of `csrc/generate.cu`, the decode step's persistent kernel with the step
+loop, the argmax and the embedding of the token fed back inside it (no
+host work between steps), or raises. M-RoPE takes the interleaved or the
+chunked layout and up to 8 sections. `generate_megakernel.launches`
+counts those launches.
 
 Each step is the decode step of `ops/decode_step.py`, so the in-flight
 token joins its own attention as an f32 column. The JAX kernel stages it
@@ -32,8 +34,15 @@ import torch
 from ..core.config import DecoderConfig
 from ..core.weights import DecoderWeights
 from ..models.decoder import DecodeState, rope_rows
-from .cuda_lib import check, check_tensor, int4, load_library, stream_of
-from .decode_step import decoder_struct, megakernel_forward_reference
+from .cuda_lib import check, check_tensor, ints, load_library, stream_of
+from .decode_step import (
+    check_rope,
+    decoder_struct,
+    megakernel_forward_reference,
+    positions,
+    rope_spec,
+    workspace,
+)
 
 
 def _mrope_starts(cfg: DecoderConfig, pos0: int,
@@ -108,30 +117,25 @@ def generate_megakernel(cfg: DecoderConfig, w: DecoderWeights, state: DecodeStat
     if dev.type != "cuda":
         raise ValueError(f"generate: no kernel for device {dev}")
 
-    H, I, HQ, KVH, D, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
-                           cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    H, V = cfg.hidden_size, cfg.vocab_size
+    secs, interleaved = rope_spec(cfg, starts)
     dec = decoder_struct("generate", cfg, w, state, dev, with_head=True)
     if w.embed.shape[0] < V:
         raise ValueError(f"generate: embedding table {tuple(w.embed.shape)} has fewer "
                          f"rows than the vocabulary ({V})")
     check_tensor("generate", "embed", w.embed, (w.embed.shape[0], H), torch.bfloat16, dev)
-    rows = w.rope.cos.shape[0]
-    for name, t in (("rope.cos", w.rope.cos), ("rope.sin", w.rope.sin)):
-        check_tensor("generate", name, t, (rows, D // 2), torch.float32, dev)
-    secs = cfg.mrope_section or ()
-    if len(secs) > 4 or (secs and not cfg.mrope_interleaved):
-        raise ValueError(f"generate kernel takes at most 4 interleaved M-RoPE "
-                         f"sections: {secs}, interleaved={cfg.mrope_interleaved}")
-    deltas = [s - pos0 for s in starts] if starts is not None else []
+    values = (pos0, *starts) if secs else (pos0,)
+    check_rope("generate", cfg, w, values[1:] if secs else values, num_steps, dev)
 
     lib = load_library()
-    ws = torch.empty(lib.qtts_generate_workspace_bytes(H, I, HQ, KVH, D, V),
-                     dtype=torch.uint8, device=dev)
+    ws = workspace(cfg, dev)
+    pos_entry = positions(state, values, dev)
     tokens = torch.empty(num_steps, dtype=torch.int32, device=dev)
     err = lib.qtts_generate(
         dec, first.data_ptr(), w.embed.data_ptr(), w.rope.cos.data_ptr(),
-        w.rope.sin.data_ptr(), rows, tokens.data_ptr(), ws.data_ptr(), pos0, num_steps,
-        len(secs), int4(secs), int4(deltas), stream_of(dev))
+        w.rope.sin.data_ptr(), pos_entry[0].data_ptr(), len(secs), interleaved, ints(secs),
+        tokens.data_ptr(), ws.data_ptr(), num_steps, stream_of(dev))
+    pos_entry[1] = None if err else tuple(v + num_steps for v in values)  # what the launch leaves
     check("generate", err)
     generate_megakernel.launches += 1
     return state._replace(position=pos0 + num_steps), tokens

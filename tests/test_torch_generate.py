@@ -132,6 +132,36 @@ def test_generate_from_warm_cache_matches_jax_dense_loop(weights):
                   (jstate.k_cache, jstate.v_cache), ts)
 
 
+# the chunked (contiguous) layout, where later sections overwrite the tail
+# of the frequency indices, at three sections and at five
+CHUNKED = {"chunked-3": (16, 24, 24), "chunked-5": (16, 12, 12, 12, 12)}
+
+
+@pytest.mark.parametrize("secs", list(CHUNKED.values()), ids=list(CHUNKED))
+def test_generate_chunked_mrope_matches_jax_kernel_interpret(weights, secs):
+    """The chunked M-RoPE layout and more than four sections: the plain
+    version against the JAX Pallas kernel in interpret mode, from section
+    starts ahead of the cache position, at the base case's bar."""
+    jw, tw = weights
+    cfg = dataclasses.replace(CFG, mrope_section=secs, mrope_interleaved=False)
+    jw, tw = jw._replace(rope=j_rope(cfg)), tw._replace(rope=t_rope(cfg, "cpu"))
+    starts = tuple(3 * s for s in range(len(secs)))
+    jstate, want = jgk.generate_megakernel.__wrapped__(
+        cfg, jw, jd.init_state(cfg), jnp.int32(7), N, chunk=64, copy_cache_in=True,
+        mrope_pos0=jnp.asarray(starts, jnp.int32), interpret=True)
+    state0 = td.init_state(cfg, "cpu")
+    ts, toks = tgk.generate_megakernel(cfg, tw, td.init_state(cfg, "cpu"), 7, N,
+                                       mrope_pos0=starts)
+    assert ts.position == int(jstate.position) == N
+    _assert_agree(cfg, tw, state0, 7, np.asarray(want), toks.numpy(),
+                  (jstate.k_cache, jstate.v_cache), ts, starts)
+    # the layout matters: the interleaved one rotates the first K column otherwise
+    inter = dataclasses.replace(cfg, mrope_interleaved=True)
+    other, _ = tgk.generate_megakernel(inter, tw, td.init_state(inter, "cpu"), 7, 1,
+                                       mrope_pos0=starts)
+    assert not torch.equal(other.k_cache[:, :, 0], ts.k_cache[:, :, 0])
+
+
 def test_generate_rope_table_bound_raises(weights):
     _, tw = weights
     tw = tw._replace(rope=t_rope(MROPE, "cpu"))
@@ -182,6 +212,34 @@ def test_cuda_kernel_matches_step_loop(weights):
     sl, tok, loop = td.init_state(MROPE, "cuda"), torch.tensor([7], device="cuda"), []
     for n in range(N):
         sl, logits, _ = tds.megakernel_forward(MROPE, tw, sl, tw.embed[tok][0].float(),
+                                               mrope_pos=[s + n for s in starts])
+        tok = torch.argmax(logits).reshape(1)
+        loop.append(tok)
+    assert torch.equal(toks.long(), torch.cat(loop))
+    assert torch.equal(sk.k_cache, sl.k_cache) and torch.equal(sk.v_cache, sl.v_cache)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("secs", list(CHUNKED.values()), ids=list(CHUNKED))
+def test_cuda_chunked_mrope_matches_step_loop(weights, secs):
+    """The chunked M-RoPE layout, three and five sections, on the card: the
+    N-step kernel's tokens and cache equal a loop of decode-step launches
+    bit for bit, in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    _, tw = weights
+    cfg = dataclasses.replace(CFG, mrope_section=secs, mrope_interleaved=False)
+    tw = tw._replace(rope=t_rope(cfg, "cuda"))
+    tw = DecoderWeights(*[type(x)(*[t.cuda() for t in x]) if isinstance(x, tuple)
+                          else x.cuda() for x in tw])
+    starts = tuple(3 * s for s in range(len(secs)))
+    before = tgk.generate_megakernel.launches
+    sk, toks = tgk.generate_megakernel(cfg, tw, td.init_state(cfg, "cuda"), 7, N,
+                                       mrope_pos0=starts)
+    assert tgk.generate_megakernel.launches == before + 1
+    sl, tok, loop = td.init_state(cfg, "cuda"), torch.tensor([7], device="cuda"), []
+    for n in range(N):
+        sl, logits, _ = tds.megakernel_forward(cfg, tw, sl, tw.embed[tok][0].float(),
                                                mrope_pos=[s + n for s in starts])
         tok = torch.argmax(logits).reshape(1)
         loop.append(tok)

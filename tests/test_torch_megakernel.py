@@ -6,7 +6,12 @@ runs it) for a few steps, and to the JAX dense oracle over 20 coupled steps
 at the bar of tests/test_megakernel.py. Both a talker-shaped decoder (codec
 vocab 3072) and a code-predictor-shaped one (5 layers, zero head) are
 covered. The CUDA kernel itself is compared with the plain version by the
-`gpu`-marked test, which runs only where a CUDA device is present."""
+`gpu`-marked tests, which run only where a CUDA device is present: at
+positions on both sides of the attention's 64-row tile and of its split
+over a kv head's blocks, the same bits on a second run, and one kernel
+launch a step."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -155,3 +160,51 @@ def _check_kernel_at(cfg, with_heads, tw, pos):
                                ref_state.v_cache[:, :, pos].float(), rtol=2e-2, atol=2e-2)
     if with_heads:
         torch.testing.assert_close(logits, ref_logits, rtol=2e-2, atol=2e-2)
+
+
+def _cuda_weights(tw):
+    return td.DecoderWeights(*[
+        type(x)(*[t.cuda() for t in x]) if isinstance(x, tuple) else x.cuda() for x in tw])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_at_tile_and_split_boundaries(case):
+    """Positions 63 / 64 / 65 (one tile, then two), 127 and 1024 / 1025
+    (sixteen tiles, one a block, then seventeen, two a block) over a cache
+    of 1,088 rows: the kernel against its plain version, and the same bits
+    on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from qwen_tts_tpu_torch.core.weights import make_rope_table
+
+    cfg, with_heads, _, tw = case
+    cfg = dataclasses.replace(cfg, max_seq_len=1088)
+    tw = _cuda_weights(tw)._replace(rope=make_rope_table(cfg, "cuda"))
+    for pos in (63, 64, 65, 127, 1024, 1025):
+        _check_kernel_at(cfg, with_heads, tw, pos)
+
+
+@pytest.mark.gpu
+def test_cuda_one_kernel_launch_per_step(case):
+    """Consecutive decode steps launch the persistent step kernel once each
+    (its own count in the workspace) and nothing else (the profiler, which
+    may lose events but adds none): the position array advances on the
+    device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, with_heads, _, tw = case
+    tw = _cuda_weights(tw)
+    state = td.init_state(cfg, "cuda")
+    embed = torch.randn(cfg.hidden_size, device="cuda")
+    state, _, _ = tds.megakernel_forward(cfg, tw, state, embed, with_head=with_heads)
+    n0 = tds.device_launches(cfg, embed.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            state, _, _ = tds.megakernel_forward(cfg, tw, state, embed, with_head=with_heads)
+        torch.cuda.synchronize()
+    assert tds.device_launches(cfg, embed.device) - n0 == 8   # the kernel's own count
+    names = {e.key for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and e.self_device_time_total > 0}
+    assert all("decode_persistent" in k for k in names), names   # and nothing else ran

@@ -201,7 +201,7 @@ def test_cuda_kernel_matches_plain(jax_bf16, form, kv):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["int8", "int4"])
+@pytest.mark.parametrize("form", ["int8", "int8_g128", "int4", "mixed"])
 def test_cuda_generation_equals_step_loop_kv8(jax_bf16, form):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [--root DIR] [profile] [phases] [positions] [forms]
-                                  [steps] [requests] [field=value ...]
+    python3 tools/profile_port.py [--root DIR] [--positions P,...] [profile] [phases]
+                                  [positions] [forms] [steps] [requests] [field=value ...]
 
 With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
 random weights from seed 0, `TTSConfig()` on the card, with any
 `field=value` arguments set on it, e.g. `quantize=int8 kv_cache=int8`).
-`--root DIR` imports the port (and `chip_smoke.py`'s helpers) from the tree
-at DIR instead of this checkout, so that one call to the card can time two
-trees in turn: unpack the other tree with `git archive` into a git-ignored
-directory and run parent, change, change, parent.
+`--root DIR` imports the port from the tree at DIR instead of this checkout
+(the timing helpers stay this checkout's `chip_smoke.py`), so that one call
+to the card can time two trees in turn: unpack the other tree with `git
+archive` into a git-ignored directory and run parent, change, change,
+parent.
 
   profile    one warm 14-word streaming request under `torch.profiler`:
              wall time with and without the profiler, device busy time,
@@ -24,19 +25,28 @@ directory and run parent, change, change, parent.
              `cp_predict`, one talker step, one vocoder chunk, and TTFC.
   positions  the talker step, kernel against plain version, over a random
              cache at positions 1000, 4095 and 8191 (CUDA events).
-  forms      one talker step at position 300 for each weight form (bf16,
-             int8, int8 with 128-row groups, int4-g128, mixed), over a bf16
-             and an int8 cache: device time by kernel, and the GEMVs'
-             achieved bandwidth (the form's matrix bytes over their time).
+  forms      one talker step for each weight form (bf16, int8, int8 with
+             128-row groups, int4-g128, mixed), over a bf16 and an int8
+             cache, at position 300 (or each of `--positions`): device time
+             and launches by kernel (profiler), time by stage from the
+             stage timers (`stage_times`: this script builds
+             `csrc/decode_step.cu` and `generate.cu` with
+             -DQTTS_STAGE_TIMERS into the git-ignored
+             `qwen_tts_tpu_torch/_build/variants/`, as
+             `tools/attention_variants.py` builds its variants, and runs
+             the steps through that library), and the GEMV stages' achieved
+             bandwidth (the form's matrix bytes over their time).
   steps      over a random cache: the talker step at positions 30, 300,
-             4095 and 8191 and the code-predictor step at 14 (device ms and
-             the attention stage's us per launch from the profiler, kernels
-             a step, host enqueue ms, back-to-back call ms from CUDA events,
-             best of three runs, and the device's span with the host ahead:
-             kernels plus the gaps between them); the standalone decode attention on one
-             layer of [28, 8, 8192, 128] bf16 caches at 300, 4095 and 8191
-             (device us per call); generation, 256 greedy steps from
-             position 0 (ms a step, best of two, and device busy a step).
+             4095 and 8191 (or `--positions`) and the code-predictor step at
+             14 (device ms and kernels a step from the profiler, the step
+             kernel's among them, host enqueue ms, back-to-back call ms
+             from CUDA events, best of three runs, and the device's span
+             with the host ahead, `chip_smoke._span_ms`: kernels plus the
+             gaps between them, best of three); the standalone decode
+             attention on one layer of [28, 8, 8192, 128] bf16 caches at
+             300, 4095 and 8191 (device us per call); generation, 256
+             greedy steps from position 0 (ms a step, best of two, and the
+             device's span of its one launch with the host ahead).
   requests   five warm 14-word streaming requests: TTFC median and the
              streaming RTF (all wall over all audio).
 
@@ -47,14 +57,19 @@ tables go to `chiprun_out/profile_port.txt`.
 from __future__ import annotations
 
 import asyncio
+import ctypes
+import importlib.util
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+POSITIONS = (30, 300, 4095, 8191)
 
 TEXT = "The quick brown fox jumps over the lazy dog while the band plays on."
 OUT = os.path.join(ROOT, "chiprun_out", "profile_port.txt")
@@ -146,28 +161,27 @@ def _parts(fn, n: int):
     return parts, events.table(sort_by="self_device_time_total", row_limit=30)
 
 
-def _call_ms(fn, n: int, runs: int = 3, ahead: bool = False) -> float:
-    """Back-to-back call time of `fn` (CUDA events), the best of `runs` runs
-    of `n` calls after three warm ones. With `ahead`, the calls queue
-    behind a ~50 ms device sleep, so the host is not the bound: the time is
-    the device's span, the gaps between kernels included."""
-    import torch
+def _smoke():
+    """This checkout's `chip_smoke.py` (its timing helpers and random
+    caches), whichever tree the port comes from."""
+    mod = sys.modules.get("chip_smoke")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                      os.path.join(ROOT, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = mod
+        spec.loader.exec_module(mod)
+    return mod
 
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    best = float("inf")
-    for _ in range(runs):
-        torch.cuda.synchronize()
-        if ahead:
-            torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        best = min(best, start.elapsed_time(end) / n)
-    return best
+
+def _call_ms(fn, n: int, runs: int = 3) -> float:
+    """Back-to-back call time of `fn` (CUDA events), the best of `runs` runs."""
+    return min(_smoke()._time_ms(fn, n) for _ in range(runs))
+
+
+def _span_ms(fn, n: int, runs: int = 3) -> float:
+    """The device's span per call with the host ahead, the best of `runs`."""
+    return min(_smoke()._span_ms(fn, n) for _ in range(runs))
 
 
 def _step_parts(cfg, w, state, n: int, talker: bool = True):
@@ -203,11 +217,79 @@ def _stepper(cfg, w, state, talker: bool):
                                       with_head=talker)
 
 
-def forms(eng, card, out):
-    """The talker step at position 300 in each weight form and cache."""
+STAGES = ("norm+QKV", "attention+O-proj", "norm+gate|up", "SwiGLU+down", "norm+head",
+          "logits", "argmax")
+
+
+_TIMER_LIB = []
+
+
+def timer_library():
+    """The decode kernels built with -DQTTS_STAGE_TIMERS (one nvcc, into
+    `_build/variants/`, named by the hash of the sources: built once),
+    loaded with ctypes."""
+    if not _TIMER_LIB:
+        from qwen_tts_tpu_torch.ops import cuda_lib
+
+        out = cuda_lib.BUILD_DIR / "variants"
+        out.mkdir(parents=True, exist_ok=True)
+        so = out / f"stage_timers_{cuda_lib._digest()}.so"
+        if not so.exists():
+            tmp = out / f"{so.name}.{os.getpid()}.tmp"
+            r = subprocess.run([cuda_lib._nvcc(), *cuda_lib.COMPILE_FLAGS, "-shared",
+                                "-DQTTS_STAGE_TIMERS", "-o", str(tmp),
+                                str(cuda_lib.CSRC / "decode_step.cu"),
+                                str(cuda_lib.CSRC / "generate.cu")],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise SystemExit(f"nvcc failed for the stage-timer build:\n{r.stdout}{r.stderr}")
+            os.replace(tmp, so)
+        _TIMER_LIB.append(cuda_lib.bind(ctypes.CDLL(str(so))))
+    return _TIMER_LIB[0]
+
+
+def stage_times(cfg, w, state, n: int, talker: bool = True):
+    """`n` decode steps at the state's position through `timer_library()`
+    (each block reads `globaltimer` as it arrives at a grid barrier, block
+    0 also as it leaves one). Returns ({stage: us per step from block 0
+    leaving the previous barrier to leaving this stage's}, us per step in
+    all, {stage: [block 0's norm (its end; 0 for a stage without one),
+    block 0's own work, the slowest block's work]} in us per step)."""
     import torch
 
-    import chip_smoke
+    from qwen_tts_tpu_torch.ops import decode_step
+
+    k = len(STAGES)
+    lib = timer_library()
+    with mock.patch.object(decode_step, "load_library", lambda: lib):
+        step = _stepper(cfg, w, state, talker)
+        step()
+        torch.cuda.synchronize()
+        ws = decode_step.workspace(cfg, w.embed.device)
+        off = lib.qtts_stage_timers_offset()
+        assert off >= 0, "the timer build has no stage timers"
+        words = ws[off:off + 8 * (2 + 5 * k)].view(torch.int64)
+        words.zero_()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        vals = words.cpu().tolist()
+    steps = vals[k + 1]
+    assert steps == n, vals
+    us = {name: vals[i] / steps / 1e3 for i, name in enumerate(STAGES)}
+    work = {name: [vals[4 * k + 2 + i] / steps / 1e3, vals[k + 2 + i] / steps / 1e3,
+                   vals[2 * k + 2 + i] / steps / 1e3]
+            for i, name in enumerate(STAGES)}
+    return us, sum(us.values()), work
+
+
+def forms(eng, card, out, positions=(300,)):
+    """The talker step at each position in each weight form and cache:
+    device time and launches from the profiler, time by stage from the
+    stage timers, and the GEMV stages' achieved bandwidth."""
+    import torch
+
+    chip_smoke = _smoke()
     from qwen_tts_tpu_torch.core.weights import QUANTIZERS
 
     cfg, w = eng.model_config.talker, eng.weights.talker
@@ -218,24 +300,33 @@ def forms(eng, card, out):
     variants = {"bf16": w, "int8": QUANTIZERS["int8"](w),
                 "int8g128": QUANTIZERS["int8"](w, group_size=128),
                 "int4": QUANTIZERS["int4"](w), "mixed": QUANTIZERS["mixed"](w)}
+    gemv = ("norm+QKV", "norm+gate|up", "SwiGLU+down", "norm+head")
     for label, qw in variants.items():
         mats = [t for t in qw.layers if t.dim() == 3] + [
             t for t in (qw.lm_head, getattr(qw, "lm_head_s", None)) if t is not None]
         gemv_bytes = sum(t.numel() * t.element_size() for t in mats)
-        for kv8 in (False, True):
-            state = chip_smoke.random_state(cfg, 300, gen, kv8)
+        for kv8, pos in itertools.product((False, True), positions):
+            state = chip_smoke.random_state(cfg, pos, gen, kv8)
             parts, enqueue_ms, table = _step_parts(cfg, qw, state, 30)
             total = sum(p[0] for p in parts.values())
-            gemv_us = sum(p[0] for k, p in parts.items() if k.startswith("gemv"))
-            bound_ms, _ = chip_smoke._bound_ms(*chip_smoke.step_cost(cfg, qw, 300, True, kv8))
-            print(f"talker step [{label}, {'int8' if kv8 else 'bf16'} cache] at position 300: "
+            stages, timed, work = stage_times(cfg, qw, state, 30)
+            gemv_us = sum(stages[k] for k in gemv)
+            bound_ms, _ = chip_smoke._bound_ms(*chip_smoke.step_cost(cfg, qw, pos, True, kv8))
+            print(f"talker step [{label}, {'int8' if kv8 else 'bf16'} cache] at position {pos}: "
                   f"device {total:.1f} us (bound {bound_ms * 1e3:.1f} us), "
                   f"{sum(p[1] for p in parts.values()):.1f} launches, host enqueue "
-                  f"{enqueue_ms:.3f} ms; GEMVs {gemv_us:.1f} us for {gemv_bytes / 1e9:.4f} "
-                  f"GB = {gemv_bytes / gemv_us / 1e6:.3f} TB/s [{card}]")
+                  f"{enqueue_ms:.3f} ms; stage timers {timed:.1f} us: attention (to its end) "
+                  f"{work['attention+O-proj'][0]:.1f} us "
+                  f"({work['attention+O-proj'][0] / cfg.num_layers:.2f} a layer), attention + "
+                  f"O-proj {stages['attention+O-proj']:.1f} us, the other GEMV stages "
+                  f"{gemv_us:.1f} us for {gemv_bytes / 1e9:.4f} GB = "
+                  f"{gemv_bytes / gemv_us / 1e6:.3f} TB/s [{card}]")
+            print("  stages (us a step): " + json.dumps({k: round(v, 2) for k, v in stages.items()}))
+            print("  norm, work to the barrier (block 0, slowest block; us a step): "
+                  + json.dumps({k: [round(x, 2) for x in v] for k, v in work.items()}))
             for name, (us, cnt) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
                 print(f"  {name[:48]:48s} {us:8.1f} us  {cnt:6.1f} launches/step")
-            out.write(f"== talker step {label}, kv8={kv8}, position 300 ==\n{table}\n")
+            out.write(f"== talker step {label}, kv8={kv8}, position {pos} ==\n{table}\n")
 
 
 def phases(eng, card):
@@ -284,7 +375,7 @@ def phases(eng, card):
 def positions(eng, card):
     import torch
 
-    import chip_smoke
+    chip_smoke = _smoke()
 
     cfg, w = eng.model_config.talker, eng.weights.talker
     gen = torch.Generator(device="cuda")
@@ -297,25 +388,7 @@ def positions(eng, card):
               f"K/V rel L2 {max(res['k_col_max_rel_l2'], res['v_col_max_rel_l2']):.4f} [{card}]")
 
 
-def _random_state(cfg, pos: int, gen, dtype):
-    """A decode state at `pos` whose cache rows [0, pos) are random (bf16;
-    for an int8 cache, random int8 rows with scales ~1/64)."""
-    import torch
-
-    from qwen_tts_tpu_torch.models.decoder import init_state
-
-    state = init_state(cfg, "cuda", dtype)
-    for cache, scales in ((state.k_cache, state.k_scale), (state.v_cache, state.v_scale)):
-        rows = torch.randn(cache[:, :, :pos].shape, generator=gen, device="cuda")
-        if dtype == torch.int8:
-            cache[:, :, :pos] = (rows * 40).clamp(-127, 127).round().to(torch.int8)
-            scales[:, :, :pos] = 1 / 64
-        else:
-            cache[:, :, :pos] = rows.to(torch.bfloat16)
-    return state._replace(position=pos)
-
-
-def steps(eng, card):
+def steps(eng, card, positions=POSITIONS):
     """Step, attention and generation times of the tree the port came from."""
     import torch
 
@@ -326,19 +399,19 @@ def steps(eng, card):
 
     mc, gen = eng.model_config, torch.Generator(device="cuda")
     gen.manual_seed(5)
-    cases = [("talker", mc.talker, eng.weights.talker, p, eng._kv_dtype)
-             for p in (30, 300, 4095, 8191)]
+    kv8 = eng._kv_dtype == torch.int8
+    cases = [("talker", mc.talker, eng.weights.talker, p, kv8) for p in positions]
     cases.append(("code predictor", mc.code_predictor, eng.weights.code_predictor.decoder, 14,
-                  torch.bfloat16))
-    for label, cfg, w, pos, dtype in cases:
-        state = _random_state(cfg, pos, gen, dtype)
+                  False))
+    for label, cfg, w, pos, kv8 in cases:
+        state = _smoke().random_state(cfg, pos, gen, kv8)
         parts, enqueue_ms, _ = _step_parts(cfg, w, state, 10, talker=label == "talker")
-        attn_us, attn_n = parts.get("attention_step", (0.0, 1.0))
         step = _stepper(cfg, w, state, label == "talker")
         res = {"device_ms": sum(p[0] for p in parts.values()) / 1e3,
-               "device_span_ms": _call_ms(step, 10, ahead=True),
-               "attention_us_per_launch": attn_us / max(attn_n, 1e-9),
+               "step_kernel_ms": parts.get("decode_persistent", (0.0, 0))[0] / 1e3,
+               "device_span_ms": _span_ms(step, 10),
                "kernels_per_step": sum(p[1] for p in parts.values()),
+               "step_kernels_per_step": parts.get("decode_persistent", (0.0, 0))[1],
                "enqueue_ms": enqueue_ms, "call_ms": _call_ms(step, 50)}
         print(f"steps: {label} step at position {pos}: {json.dumps(res)} [{card}]")
         del state
@@ -364,10 +437,10 @@ def steps(eng, card):
     call = lambda: generate_megakernel(cfg, eng.weights.talker, state, first, 256,  # noqa: E731
                                        starts)
     ms = _call_ms(call, 1, runs=2) / 256
-    parts, _ = _parts(call, 1)
-    busy = sum(p[0] for p in parts.values()) / 1e3 / 256
+    span = _span_ms(call, 1, runs=2) / 256
     print(f"steps: generation, 256 steps from position 0: {ms:.4f} ms a step = "
-          f"{1e3 / ms:.1f} tok/s, device busy {busy:.4f} ms a step [{card}]")
+          f"{1e3 / ms:.1f} tok/s, device span {span:.4f} ms a step (one launch; idle share "
+          f"{1 - span / ms:.3f}) [{card}]")
 
 
 def requests(eng, card, n: int = 5):
@@ -381,10 +454,14 @@ def requests(eng, card, n: int = 5):
 
 def main() -> int:
     args = sys.argv[1:]
-    root = ROOT
+    root, positions = ROOT, None
     if "--root" in args:
         i = args.index("--root")
         root = os.path.abspath(args[i + 1])
+        del args[i:i + 2]
+    if "--positions" in args:
+        i = args.index("--positions")
+        positions = tuple(int(p) for p in args[i + 1].split(","))
         del args[i:i + 2]
     sys.path.insert(0, root)
     import torch
@@ -410,9 +487,9 @@ def main() -> int:
             elif name == "positions":
                 positions(eng, card)
             elif name == "forms":
-                forms(eng, card, out)
+                forms(eng, card, out, positions or (300,))
             elif name == "steps":
-                steps(eng, card)
+                steps(eng, card, positions or POSITIONS)
             elif name == "requests":
                 requests(eng, card)
             else:
