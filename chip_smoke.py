@@ -21,10 +21,13 @@ is printed):
      prefixes), the 5-layer code predictor at positions 2 and 14; then one
      step at 4095 run twice on the same inputs, the same bits;
   3. the engine's main path, `TTSEngine(TTSConfig())` (on the card by
-     default): three streaming requests of different lengths and one
+     default; each chunk one replay of a CUDA graph captured in
+     `initialize()`): three streaming requests of different lengths and one
      `synthesize`; checks chunk lengths, finite audio, and that the
-     decode-step kernel's launch count equals the talker plus
-     code-predictor decode steps run; then a reduced model on the GPU
+     decode-step kernel's own launch count (`TTSEngine.decode_launches`:
+     the kernel counts in its workspace, so graph replays are counted)
+     equals the talker plus code-predictor decode steps run, frames
+     computed past EOS or the cap included; then a reduced model on the GPU
      (kernels) against the same model on the CPU (plain path), greedy: the
      first frame's codes equal and its audio within 1e-3, and over 8 frames
      either >= 95% of the codes equal or the first differing code a near
@@ -38,7 +41,7 @@ is printed):
      predictor: the step kernel, at most once a step, and nothing else,
      from a run in which the profiler saw a kernel),
      and the talker step at positions 30, 300, 4095 and 8191: the device's
-     span, kernels a call, call ms; TTFC and RTF of the eager engine;
+     span, kernels a call, call ms; TTFC and RTF of the main path;
   5. the decode-attention kernel against its plain version at full talker
      shape (layer 27 of [28, 8, 8192, 128] caches) at positions 0, 1, 63,
      64, 65, 255, 256, 257, 300, 1023, 1024, 1025, 4095 and 8191, the rows
@@ -51,7 +54,8 @@ is printed):
      and 64 steps from a random position-300 cache with M-RoPE deltas
      (0, 5, 9); both held bit for bit (tokens and cache columns) to a loop
      of decode-step launches + `torch.argmax` + `embed[token]`;
-  7. the "pallas" path, `TTSEngine(TTSConfig(backend="pallas"))`: one
+  7. the "pallas" path, `TTSEngine(TTSConfig(backend="pallas",
+     fused_chunks=False))` (its ops take host positions: no graphs): one
      streaming request with the chunk checks of phase 3 and
      decode-attention launches == 28 x talker steps + 5 x code-predictor
      steps; then the reduced-model GPU-versus-CPU parity of phase 3 on
@@ -77,7 +81,8 @@ is printed):
      into their rounding: their LSB differences are counted and printed);
  10. the quantized main path, `TTSConfig(quantize="int8",
      kv_cache="int8")`: three streaming requests and one `synthesize` with
-     phase 3's checks and decode-step launches == decode steps, then the
+     phase 3's checks and the kernel's own count of decode-step launches ==
+     decode steps, then the
      reduced model's GPU-versus-CPU parity on that configuration (backend
      "mega" on both: the kernel and its plain version); then one streaming
      request each with quantize "int4" and "mixed", kv_cache "int8";
@@ -91,7 +96,16 @@ is printed):
      on both caches, code predictor), the int8 form's talker step at 30,
      300, 4095 and 8191 as in phase 4, generation of 64 and 256 steps for
      each form of phase 11, and the int8+kv8 engine's TTFC and streaming
-     RTF.
+     RTF;
+ 13. the graph path against the eager loop: for bf16 (phase 3's engine) and
+     int8+kv8 (phase 10's), an engine with `fused_chunks=False` on the same
+     weights serves the three streaming requests and the `synthesize` of
+     phase 3 with the same request numbers: codes equal bit for bit, chunk
+     lengths equal, audio within 1e-4 * max(1, max |eager|); one warm
+     request under `torch.profiler`: one `cudaGraphLaunch` a chunk plus one
+     for the first chunk, the host's other CUDA calls a chunk, and the
+     device's busy share of the wall; TTFC and RTF medians of both paths on
+     one line.
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form as well; the last line is {"ok": true, "device":
 {...}}. JAX and the JAX package are blocked for the whole run: the port
@@ -525,6 +539,103 @@ def run_requests(eng):
     return stats
 
 
+def serve(eng, texts=TEXTS, synthesize: bool = True, request0: int = 200):
+    """The streaming requests of `texts`, numbered from `request0`, through
+    the engine's chunk generator, then one `synthesize` of TEXTS[1]:
+    ([(TTFC ms, wall s, audio s, [(audio, frames)...]) per request],
+    (waveform, the frames it decoded) or None)."""
+    out = []
+    for r, text in enumerate(texts):
+        eng._requests = request0 + r - 1
+        t0 = time.perf_counter()
+        ttfc, chunks = None, []
+        for audio, frames in eng._generate_chunks(text, eng.config.chunk_frames, True):
+            ttfc = ttfc or time.perf_counter() - t0
+            chunks.append((audio, frames))
+        wall = time.perf_counter() - t0
+        out.append((ttfc * 1e3, wall, sum(len(a) for a, _ in chunks) / eng.sample_rate, chunks))
+    if not synthesize:
+        return out, None
+    eng._requests = request0 + len(texts) - 1
+    seen, real = [], eng._decode_to_audio
+    eng._decode_to_audio = lambda frames: (seen.append(list(frames)), real(frames))[1]
+    try:
+        wav, _sr = eng.synthesize(TEXTS[1])
+    finally:
+        del eng._decode_to_audio
+    return out, (wav, seen[-1])
+
+
+def graph_against_eager(geng, label: str, card: str) -> dict:
+    """Phase 13: the graph engine `geng` against an eager engine on its
+    weights (`fused_chunks=False`), the same requests and request numbers:
+    codes equal bit for bit, audio within 1e-4 * max(1, max |eager|); then
+    one warm request of the graph engine under the profiler; TTFC and RTF
+    medians of both."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+
+    eeng = TTSEngine(TTSConfig(fused_chunks=False, kv_cache=geng.config.kv_cache))
+    eeng.initialize(weights=geng.weights, vocoder_weights=geng.vocoder_weights)
+    serve(eeng, TEXTS[:1], synthesize=False, request0=190)     # warm
+    g_out, g_syn = serve(geng)
+    e_out, e_syn = serve(eeng)
+    stack = lambda chunks: np.stack([f for _a, fr in chunks for f in fr])  # noqa: E731
+    res = {"form": label, "requests": [], "synthesize": {}}
+    for (_t, _w, _s, gc), (_t2, _w2, _s2, ec) in zip(g_out, e_out):
+        lens = ([len(fr) for _a, fr in gc], [len(fr) for _a, fr in ec])
+        diff = max(float(np.abs(a - b).max()) for (a, _), (b, _) in zip(gc, ec))
+        scale = max(1.0, max(float(np.abs(b).max()) for b, _ in ec))
+        res["requests"].append({"chunks": len(gc), "frames": int(sum(lens[0])),
+                                "codes_equal": lens[0] == lens[1]
+                                and bool(np.array_equal(stack(gc), stack(ec))),
+                                "audio_max_abs_diff": diff, "bar": 1e-4 * scale})
+    (gw, gf), (ew, ef) = g_syn, e_syn
+    res["synthesize"] = {"frames": len(gf), "codes_equal": len(gf) == len(ef) and bool(
+        np.array_equal(np.stack(gf), np.stack(ef))), "audio_max_abs_diff": float(
+        np.abs(gw - ew).max()), "bar": 1e-4 * max(1.0, float(np.abs(ew).max()))}
+    print(f"graph against eager [{label}]: {json.dumps(res)}")
+    for r in res["requests"] + [res["synthesize"]]:
+        assert r["codes_equal"] and r["audio_max_abs_diff"] <= r["bar"], res
+
+    geng._requests = 230
+    r0 = geng._graphs.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunks = list(geng._generate_chunks(TEXTS[2], geng.config.chunk_frames, True))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    replays = geng._graphs.replays - r0
+    calls, busy_us = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            busy_us += e.self_device_time_total
+        elif e.key.startswith("cuda") and e.count:
+            calls[e.key] = e.count
+    graph_launches = calls.pop("cudaGraphLaunch", 0)
+    prof_res = {"chunks_yielded": len(chunks), "replays": replays,
+                "cudaGraphLaunch": graph_launches,
+                "other_cuda_calls_per_chunk": {k: v / replays for k, v in sorted(calls.items())},
+                "device_busy_share": busy_us / 1e6 / wall, "profiled_wall_s": wall}
+    print(f"graph path [{label}], one warm {len(TEXTS[2].split())}-word request profiled: "
+          f"{json.dumps(prof_res)} {card}")
+    assert graph_launches == replays >= len(chunks), prof_res
+
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    times = {f"{name}_{k}": med([f(r) for r in out]) for name, out in (("graph", g_out),
+                                                                        ("eager", e_out))
+             for k, f in (("ttfc_ms", lambda r: r[0]), ("rtf", lambda r: r[1] / r[2]))}
+    print(f"graph against eager [{label}], medians of the three streaming requests: TTFC "
+          f"graph {times['graph_ttfc_ms']:.2f} ms, eager {times['eager_ttfc_ms']:.2f} ms; "
+          f"RTF graph {times['graph_rtf']:.4f}, eager {times['eager_rtf']:.4f} {card}")
+    del eeng
+    return {**times, "device_busy_share": prof_res["device_busy_share"],
+            "cuda_graph_launches": graph_launches, "replays": replays}
+
+
 def record_logits(frame_loop):
     """Patch the frame loop to keep, per frame, the talker logits that chose
     code 0 and the code-predictor logits `[15, V]` that chose codes 1..15.
@@ -573,7 +684,8 @@ def reduced_engine_parity(backend: str = "auto", **quant):
     out = {}
     for dev in ("cuda", "cpu"):
         eng = TTSEngine(TTSConfig(device=dev, backend=backend, max_seq_len=256,
-                                  chunk_frames=4, subtalker_do_sample=False, **quant),
+                                  chunk_frames=4, subtalker_do_sample=False,
+                                  fused_chunks=backend != "pallas", **quant),
                         model_config=mc)
         to_dev = lambda t: t.to(dev)  # noqa: E731
         eng.initialize(weights=_map(to_dev, w_cpu), vocoder_weights=_map(to_dev, v_cpu))
@@ -914,14 +1026,16 @@ def main() -> int:
     _phase_done(2)
 
     # ── phase 3: the main path through the engine ──
-    run_requests(eng)                              # warm: cuBLAS/cuDNN set-up
+    stream(eng, TEXTS[0])                          # warm: the host-side set-up
     _reset_launches()
-    m0 = eng.get_metrics()
+    m0, d0 = eng.get_metrics(), eng.decode_launches()
     stats = run_requests(eng)
-    launches = {"decode_step": decode_step.megakernel_forward.launches}
+    launches = {"decode_step": eng.decode_launches() - d0}
     m1 = eng.get_metrics()
     steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
-    print(f"main path: {launches['decode_step']} decode-step launches, {steps} decode steps "
+    print(f"main path (CUDA graphs): {launches['decode_step']} decode-step launches (the "
+          f"kernel's own count; the wrapper's {decode_step.megakernel_forward.launches}), "
+          f"{steps} decode steps "
           f"(talker {m1['talker_steps'] - m0['talker_steps']}, "
           f"code predictor {m1['cp_steps'] - m0['cp_steps']})")
     assert launches["decode_step"] == steps > 0, (launches, steps)
@@ -960,7 +1074,7 @@ def main() -> int:
     streams = [s for s in stats if "ttfc_ms" in s]
     ttfc = sorted(s["ttfc_ms"] for s in streams)
     rtf = sum(s["wall_s"] for s in streams) / sum(s["audio_s"] for s in streams)
-    print(f"eager slice: TTFC median {ttfc[len(ttfc) // 2]:.2f} ms "
+    print(f"main path (CUDA graphs): TTFC median {ttfc[len(ttfc) // 2]:.2f} ms "
           f"(max {ttfc[-1]:.2f}), streaming RTF {rtf:.4f} {card}")
 
     _phase_done(4)
@@ -989,7 +1103,7 @@ def main() -> int:
     _phase_done(6)
 
     # ── phase 7: the "pallas" path through the engine ──
-    peng = TTSEngine(TTSConfig(backend="pallas"))
+    peng = TTSEngine(TTSConfig(backend="pallas", fused_chunks=False))
     peng.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
     _reset_launches()
     m0 = peng.get_metrics()
@@ -1048,26 +1162,23 @@ def main() -> int:
     # ── phase 10: the quantized main path, TTSConfig(quantize=..., kv_cache="int8") ──
     qeng = TTSEngine(TTSConfig(quantize="int8", kv_cache="int8"))
     qeng.initialize()
-    run_requests(qeng)                             # warm
-    _reset_launches()
-    m0 = qeng.get_metrics()
+    stream(qeng, TEXTS[0])                         # warm
+    m0, d0 = qeng.get_metrics(), qeng.decode_launches()
     qstats = run_requests(qeng)
-    qlaunch = {"int8": decode_step.megakernel_forward.launches}
+    qlaunch = {"int8": qeng.decode_launches() - d0}
     m1 = qeng.get_metrics()
     steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
     print(f"int8+kv8 path: {qlaunch['int8']} decode-step launches, {steps} decode steps")
     assert qlaunch["int8"] == steps > 0, (qlaunch, steps)
     assert qeng._talker_state.k_cache.dtype == torch.int8
-    del qeng
     parity_q = reduced_engine_parity("mega", quantize="int8", kv_cache="int8")
     print("reduced model int8+kv8, GPU kernel vs CPU plain engine:", json.dumps(parity_q))
     for q in ("int4", "mixed"):
         e = TTSEngine(TTSConfig(quantize=q, kv_cache="int8"))
         e.initialize()
-        _reset_launches()
-        m0 = e.get_metrics()
+        m0, d0 = e.get_metrics(), e.decode_launches()
         ttfc, wall, chunks = stream(e, TEXTS[0])
-        qlaunch[q] = decode_step.megakernel_forward.launches
+        qlaunch[q] = e.decode_launches() - d0
         m1 = e.get_metrics()
         audio = check_stream(e, chunks)
         steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
@@ -1137,6 +1248,13 @@ def main() -> int:
           f"{qttfc[-1]:.2f}), streaming RTF {qrtf:.4f} {card}")
 
     _phase_done(12)
+
+    # ── phase 13: the graph path against the eager loop, bf16 and int8+kv8 ──
+    engine_t = {"bf16": graph_against_eager(eng, "bf16", card),
+                "int8+kv8": graph_against_eager(qeng, "int8+kv8", card)}
+    del qeng
+
+    _phase_done(13)
     assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
                                                  *gerr.values()])
     a300 = attn_t[300]
@@ -1149,7 +1267,7 @@ def main() -> int:
          "device_span_ms": t_dev, "cp_ms": c_k, "cp_device_span_ms": c_dev, "cp_plain_ms": c_p,
          "cp_bound_ms": c_b,
          "by_position": {str(p): v for p, v in step_pos.items()},
-         "kernels_per_step": per_step, "grid": grid},
+         "kernels_per_step": per_step, "grid": grid, "engine": engine_t},
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",

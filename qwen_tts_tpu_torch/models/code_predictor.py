@@ -5,6 +5,9 @@ prefill `[talker_hidden, embed(first_token)]`, then per group: head →
 sample → embed → one single-token step. The JAX scan also runs a step
 after the last group whose output nothing reads; the port skips it, so a
 frame costs 14 steps, not 15 (tests assert the codes are unchanged). The
+caller may pass the decoder's state, which is reset in place (the frame
+loop keeps one for all frames, so a captured frame allocates nothing and
+its cache keeps its address); without one a fresh state is allocated. The
 decoder may be quantized (the engine's `cp_quantize`); its KV cache and its
 15 heads stay bf16, as in the JAX package.
 """
@@ -16,7 +19,7 @@ import torch
 from ..core.config import DecoderConfig
 from ..core.weights import CodePredictorWeights
 from ..ops.sampling import sample_logits
-from .decoder import forward_chunk, init_state, matmul
+from .decoder import DecodeState, forward_chunk, init_state, matmul, reset_state
 
 
 def cp_predict(
@@ -32,11 +35,12 @@ def cp_predict(
     num_groups: int = 15,
     attn_impl: str = "dense",
     return_logits: bool = False,
+    state: DecodeState | None = None,   # reset in place; None: a fresh one
 ):
     """Predict all 16 codebook groups of one frame. Returns `[16]` int64
     `[first_token, predicted_1..15]` (and the `[15, 2048]` f32 logits when
     `return_logits`)."""
-    state = init_state(cfg, talker_hidden.device)
+    state = init_state(cfg, talker_hidden.device) if state is None else reset_state(state)
     # 1-element index: a 0-d one is read back to the host (a device sync)
     first_embed = talker_embed_table[first_token.reshape(1)][0].float()
     prefill = torch.stack([talker_hidden.float(), first_embed])

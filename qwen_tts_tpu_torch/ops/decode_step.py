@@ -20,13 +20,22 @@ positions from a device array (`positions`), which each launch advances,
 and gathers its rope row from the tables itself, so consecutive steps need
 no host-to-device traffic and no host sync. It is built with the port's
 other kernels by `ops/cuda_lib.py` at first use.
-`megakernel_forward.launches` counts kernel launches.
+`megakernel_forward.launches` counts the wrapper's kernel launches; a
+CUDA graph that replays a captured step does not pass through the wrapper,
+so the kernel also counts its own launches in its workspace
+(`device_launches`).
+
+A caller that captures steps into CUDA graphs owns the workspace and the
+position arrays those graphs bake in (`Owned`): the module's own keep one
+workspace per stream and a bounded cache of position arrays, from which an
+array could be evicted and freed under a graph.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Sequence
 
 import torch
@@ -164,14 +173,78 @@ _POSITIONS: OrderedDict[tuple, list] = OrderedDict()
 _MAX_POSITION_ARRAYS = 16
 
 
+class Owned:
+    """The decode kernel's workspace and position arrays, owned by one
+    caller (a runner of CUDA graphs, whose captured launches bake their
+    addresses in) and never evicted. While `active()`, every launch uses
+    them instead of the module's per-stream workspace and its bounded cache
+    of position arrays. Nothing of them may be allocated during a capture:
+    run the captured code once eagerly first, the widest decoder first
+    (the workspace is sized by it): once `frozen` (the caller's first
+    capture), the workspace cannot grow under the graphs. Each array's
+    entry is `[int32 tensor, the values it holds when the next launch runs,
+    or None when the host does not know them]`."""
+
+    def __init__(self):
+        self.workspace: torch.Tensor | None = None
+        self.arrays: dict[int, list] = {}      # k_cache data_ptr -> entry
+        self.carried: frozenset[int] = frozenset()
+        self.frozen = False
+
+    @contextmanager
+    def active(self, carried: Sequence[DecodeState] = ()):
+        """Launches inside use these arrays. The arrays of the `carried`
+        caches are never filled: whatever ran before (an earlier graph)
+        leaves them at the positions the launches ask for. Every other array
+        whose values the host does not know is filled before its first
+        launch, with the positions the host passes."""
+        global _OWNER
+        saved = _OWNER, self.carried
+        _OWNER, self.carried = self, frozenset(s.k_cache.data_ptr() for s in carried)
+        try:
+            yield self
+        finally:
+            _OWNER, self.carried = saved
+
+    def forget(self) -> None:
+        """Mark every array's values unknown (after a graph replay, which
+        advances them without the host): the next eager launch on a cache
+        fills its array, and so does the first launch of a capture."""
+        for entry in self.arrays.values():
+            entry[1] = None
+
+    def launches(self) -> int:
+        """The decode kernel's launches with this workspace so far, as the
+        kernel counts them (a device read: it waits for the stream)."""
+        return 0 if self.workspace is None else _launch_count(self.workspace)
+
+
+_OWNER: Owned | None = None
+
+
+def _not_capturing(what: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"decode_step: the {what} would be allocated inside a CUDA graph "
+                           f"capture; run the captured code once before capturing it")
+
+
 def workspace(cfg: DecoderConfig, dev: torch.device) -> torch.Tensor:
-    """The kernels' scratch on `dev` for the current stream: zeroed once
-    (it holds the grid barrier's count, which each launch leaves set for the next)
-    and kept, grown for a wider decoder. Launches on one stream share it in
-    stream order."""
+    """The kernels' scratch on `dev` for the current stream (or the active
+    `Owned`'s): zeroed once (it holds the grid barrier's count, which each
+    launch leaves set for the next) and kept, grown for a wider decoder.
+    Launches on one stream share it in stream order."""
     lib = load_library()
     n = lib.qtts_workspace_bytes(cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
                                  cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    if _OWNER is not None:
+        ws = _OWNER.workspace
+        if ws is None or ws.numel() < n:
+            _not_capturing("workspace")
+            if _OWNER.frozen:
+                raise RuntimeError("decode_step: a wider decoder would grow the workspace "
+                                   "that captured graphs hold")
+            ws = _OWNER.workspace = torch.zeros(n, dtype=torch.uint8, device=dev)
+        return ws
     key = (dev.index, stream_of(dev))
     ws = _WORKSPACES.get(key)
     if ws is None or ws.numel() < n:
@@ -180,15 +253,15 @@ def workspace(cfg: DecoderConfig, dev: torch.device) -> torch.Tensor:
     return ws
 
 
-def positions(state: DecodeState, values: Sequence[int], dev: torch.device):
-    """The device int32 array of this cache's positions, holding `values`
-    (the cache row, then the M-RoPE section positions) when the next launch
-    runs: each kernel launch advances the array by its steps, so
-    consecutive steps find it set, and only a jump (a new request, a
-    replayed position) costs one small fill launch. Returns the entry
-    `[tensor, values it will hold]`, which the caller advances after its
-    launch."""
-    lib = load_library()
+def _position_entry(state: DecodeState, dev: torch.device) -> list:
+    if _OWNER is not None:
+        key = state.k_cache.data_ptr()
+        entry = _OWNER.arrays.get(key)
+        if entry is None:
+            _not_capturing("position array")
+            entry = _OWNER.arrays[key] = [
+                torch.zeros(1 + MAX_SECTIONS, dtype=torch.int32, device=dev), None]
+        return entry
     key = (dev.index, stream_of(dev), state.k_cache.data_ptr())
     entry = _POSITIONS.get(key)
     if entry is None:
@@ -197,7 +270,22 @@ def positions(state: DecodeState, values: Sequence[int], dev: torch.device):
         while len(_POSITIONS) > _MAX_POSITION_ARRAYS:
             _POSITIONS.popitem(last=False)
     _POSITIONS.move_to_end(key)
+    return entry
+
+
+def positions(state: DecodeState, values: Sequence[int], dev: torch.device):
+    """The device int32 array of this cache's positions, holding `values`
+    (the cache row, then the M-RoPE section positions) when the next launch
+    runs: each kernel launch advances the array by its steps, so
+    consecutive steps find it set, and only a jump (a new request, a
+    replayed position) costs one small fill launch. A carried cache of the
+    active `Owned` is never filled. Returns the entry `[tensor, values it
+    will hold]`, which the caller advances after its launch."""
+    lib = load_library()
+    entry = _position_entry(state, dev)
     values = tuple(int(v) for v in values)
+    if _OWNER is not None and state.k_cache.data_ptr() in _OWNER.carried:
+        entry[1] = values
     if entry[1] != values:
         err = lib.qtts_set_positions(entry[0].data_ptr(), len(values), ints(values),
                                      stream_of(dev))
@@ -230,11 +318,15 @@ def rope_spec(cfg: DecoderConfig, mrope_pos: Sequence[int] | None):
 
 
 def device_launches(cfg: DecoderConfig, dev: torch.device) -> int:
-    """The decode kernel's launches on `dev`'s current stream so far, as
-    the kernel counts them in its workspace (a device read: it waits for
-    the stream)."""
+    """The decode kernel's launches with the workspace of `dev`'s current
+    stream (or of the active `Owned`) so far, as the kernel counts them in
+    it (a device read: it waits for the stream)."""
+    return _launch_count(workspace(cfg, dev))
+
+
+def _launch_count(ws: torch.Tensor) -> int:
     off = load_library().qtts_launch_count_offset()
-    return int(workspace(cfg, dev)[off:off + 8].view(torch.int64).item())
+    return int(ws[off:off + 8].view(torch.int64).item())
 
 
 def launch_info(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,

@@ -3,7 +3,10 @@ Gumbel-max. Port of `qwen_tts_tpu/ops/sampling.py`.
 
 torch cannot reproduce JAX's threefry bits, so the Gumbel noise is an
 argument: callers draw it from an explicit `torch.Generator`
-(`gumbel_noise`), and tests inject the exact values JAX drew.
+(`gumbel_noise`), and tests inject the exact values JAX drew. The
+transform is its own function (`gumbel_from_uniform`): the engine draws a
+chunk's uniforms outside its CUDA graph, with a generator seeded per
+frame, and the graph transforms them.
 """
 
 from __future__ import annotations
@@ -11,11 +14,15 @@ from __future__ import annotations
 import torch
 
 
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel samples -log(-log(u)), u clamped to [tiny, 1)."""
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
 def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
     """Standard Gumbel samples, -log(-log(u)) with u uniform in [tiny, 1)."""
     u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    u = u.clamp_min(torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
+    return gumbel_from_uniform(u)
 
 
 def sample_logits(logits: torch.Tensor, do_sample: bool, temperature: float = 0.9,

@@ -3,16 +3,22 @@
 A frame is: the code predictor's 16 codes, the sum of their 16 codec
 embeddings plus the trailing-text embedding as the next talker input, and
 one talker step. JAX scans frames on the device inside one jit; here a
-Python loop enqueues them, and nothing in the loop waits on the device:
-positions and trailing-text indices are host integers, the EOS `alive`
-flag stays a device tensor until the caller reads the chunk, and tables
-are indexed by a token as `table[token.reshape(1)][0]`: indexing by a 0-d
-tensor reads it back to the host, which waits on the device.
+Python loop enqueues them, and the engine captures a whole chunk of them
+into one CUDA graph (`engine/tts_engine.py`). So nothing in the loop waits
+on the device, and nothing that changes from chunk to chunk is a host
+value: the trailing-text index and length are device int32 scalars, the
+text row is chosen with `torch.where` (JAX `frame_step` :83-89), the
+Gumbel noise is transformed from a buffer of uniforms the caller filled,
+the EOS `alive` flag stays on the device, and tables are indexed by a
+token as `table[token.reshape(1)][0]`: indexing by a 0-d tensor reads it
+back to the host, which waits on the device. Positions are host integers
+that the kernels also keep on the device (`ops/decode_step.py`), so a
+replayed chunk carries on from where the last one left.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -20,9 +26,7 @@ from ..core.config import CODEC_BOS, CODEC_EOS, DecoderConfig
 from ..core.weights import CodePredictorWeights, DecoderWeights
 from ..models.code_predictor import cp_predict
 from ..models.decoder import DecodeState, decode_step_with_embed, forward_chunk
-
-# (absolute frame index) -> [15, top_k] Gumbel noise for that frame
-NoiseFn = Callable[[int], torch.Tensor]
+from ..ops.sampling import gumbel_from_uniform
 
 
 class FrameResult(NamedTuple):
@@ -49,22 +53,24 @@ def _sum_code_embeddings(codes: torch.Tensor, talker_embed: torch.Tensor,
 def frame_step(talker_cfg: DecoderConfig, cp_cfg: DecoderConfig,
                talker_w: DecoderWeights, cp_w: CodePredictorWeights,
                state: DecodeState, prev_token: torch.Tensor, hidden: torch.Tensor,
-               trailing: torch.Tensor, trailing_len: int, trailing_idx: int,
-               tts_pad_embed: torch.Tensor, noise: torch.Tensor | None,
-               do_sample: bool = True, temperature: float = 0.9, top_k: int = 50,
-               attn_impl: str = "dense",
-               mrope_deltas: Sequence[int] | None = None) -> FrameResult:
-    """One full frame."""
+               trailing: torch.Tensor, trailing_len: torch.Tensor,
+               trailing_idx: torch.Tensor, tts_pad_embed: torch.Tensor,
+               noise: torch.Tensor | None, do_sample: bool = True,
+               temperature: float = 0.9, top_k: int = 50, attn_impl: str = "dense",
+               mrope_deltas: Sequence[int] | None = None,
+               cp_state: DecodeState | None = None) -> FrameResult:
+    """One full frame. `trailing_len` and `trailing_idx` are 0-d int32
+    tensors on the device; `cp_state` is the code predictor's state, reset
+    in place (None: a fresh one)."""
     codes = cp_predict(cp_cfg, cp_w, hidden, prev_token, talker_w.embed,
                        do_sample=do_sample, temperature=temperature, top_k=top_k,
-                       noise=noise, attn_impl=attn_impl)
+                       noise=noise, attn_impl=attn_impl, state=cp_state)
     embed_sum = _sum_code_embeddings(codes, talker_w.embed, cp_w.codec_embeds)
-    if trailing_idx < trailing_len:
-        text_embed = trailing[min(trailing_idx, trailing.shape[0] - 1)]
-    else:
-        text_embed = tts_pad_embed
+    row = trailing_idx.clamp_max(trailing.shape[0] - 1).long().reshape(1)
+    text_embed = torch.where(trailing_idx < trailing_len, trailing[row][0].float(),
+                             tts_pad_embed.float())
     state, next_token, next_hidden = decode_step_with_embed(
-        talker_cfg, talker_w, state, embed_sum + text_embed.float(),
+        talker_cfg, talker_w, state, embed_sum + text_embed,
         attn_impl=attn_impl, mrope_pos=_mrope_pos(state, mrope_deltas))
     return FrameResult(state, codes, next_token, next_hidden)
 
@@ -72,29 +78,33 @@ def frame_step(talker_cfg: DecoderConfig, cp_cfg: DecoderConfig,
 def frames_chunk(talker_cfg: DecoderConfig, cp_cfg: DecoderConfig,
                  talker_w: DecoderWeights, cp_w: CodePredictorWeights,
                  state: DecodeState, prev_token: torch.Tensor,
-                 hidden: torch.Tensor, trailing: torch.Tensor, trailing_len: int,
-                 trailing_idx0: int, tts_pad_embed: torch.Tensor,
-                 noise_fn: NoiseFn | None, num_frames: int, do_sample: bool = True,
+                 hidden: torch.Tensor, trailing: torch.Tensor, trailing_len: torch.Tensor,
+                 trailing_idx0: torch.Tensor, tts_pad_embed: torch.Tensor,
+                 uniform: torch.Tensor | None, num_frames: int, do_sample: bool = True,
                  temperature: float = 0.9, top_k: int = 50,
                  attn_impl: str = "dense",
-                 mrope_deltas: Sequence[int] | None = None):
-    """`num_frames` frames. Frame i is valid while no token fed so far was
-    CODEC_EOS (the JAX `alive` rule); frames after EOS are still computed,
-    as in JAX, and flagged. Noise is keyed by the absolute frame index, so
-    the codes do not depend on how frames are chunked.
+                 mrope_deltas: Sequence[int] | None = None,
+                 cp_state: DecodeState | None = None):
+    """`num_frames` frames from the trailing-text index `trailing_idx0` (a
+    0-d int32 device tensor, as is `trailing_len`). With sampling on,
+    `uniform [num_frames, 15, top_k]` holds each frame's uniform draws
+    (keyed by the absolute frame index, so codes do not depend on how
+    frames are chunked), turned into Gumbel noise here. Frame i is valid
+    while no token fed so far was CODEC_EOS (the JAX `alive` rule); frames
+    after EOS are still computed, as in JAX, and flagged.
 
     Returns (state, codes [n, 16] int64, valid [n] bool, next_token, next_hidden).
     """
+    noise = gumbel_from_uniform(uniform[:num_frames]) if do_sample else None
     alive = torch.ones((), dtype=torch.bool, device=hidden.device)
     codes, valid = [], []
     tok, hid = prev_token, hidden
     for i in range(num_frames):
-        frame = trailing_idx0 + i
         r = frame_step(talker_cfg, cp_cfg, talker_w, cp_w, state, tok, hid,
-                       trailing, trailing_len, frame, tts_pad_embed,
-                       noise_fn(frame) if (do_sample and noise_fn) else None,
+                       trailing, trailing_len, trailing_idx0 + i, tts_pad_embed,
+                       None if noise is None else noise[i],
                        do_sample=do_sample, temperature=temperature, top_k=top_k,
-                       attn_impl=attn_impl, mrope_deltas=mrope_deltas)
+                       attn_impl=attn_impl, mrope_deltas=mrope_deltas, cp_state=cp_state)
         alive = alive & (tok != CODEC_EOS)
         codes.append(r.codes)
         valid.append(alive)

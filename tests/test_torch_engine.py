@@ -169,8 +169,11 @@ def test_eos_stops_before_the_cap(port, monkeypatch):
     m1 = port.get_metrics()
     assert len(frames) == 3
     assert m1["frames_generated"] == 3
-    assert m1["talker_steps"] - m0["talker_steps"] == 1 + 1 + 4   # BOS step + chunks 1, 4
-    assert m1["cp_steps"] - m0["cp_steps"] == 14 * 5
+    # BOS step + chunks 1, 4, and the two chunks of 4 enqueued before the
+    # second chunk was read (the fused path's speculation): computed, counted
+    # and dropped
+    assert m1["talker_steps"] - m0["talker_steps"] == 1 + 1 + 4 + 4 + 4
+    assert m1["cp_steps"] - m0["cp_steps"] == 14 * 13
 
 
 def test_metrics_and_nonstreaming_length(port):

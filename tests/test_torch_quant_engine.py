@@ -116,4 +116,6 @@ def test_every_form_serves(mc, quantize, kv_cache, cp_quantize):
     state = eng._talker_state
     assert state.k_cache.dtype == (torch.int8 if kv_cache == "int8" else torch.bfloat16)
     assert (state.k_scale is not None) == (kv_cache == "int8")
-    assert eng.get_metrics()["position"] == state.position == 9 + 5
+    # prefill + BOS step, the two chunks read, and the two chunks of 4 that
+    # the fused path enqueued ahead of the reads
+    assert eng.get_metrics()["position"] == state.position == 9 + 5 + 2 * 4

@@ -19,7 +19,8 @@ parent.
              device-to-host copies (each one waits on the device), device
              time by kernel; then one talker step at position 100: device
              time and launches by kernel, and the host time to enqueue it.
-  phases     the phases of three 14-word streaming requests, each timed
+  phases     the phases of three 14-word streaming requests on the eager
+             loop (`fused_chunks=False`, on the engine's weights), each timed
              with `torch.cuda.synchronize()` around it: text projection,
              talker prefill (dense T=8 + the first kernel step), one
              `cp_predict`, one talker step, one vocoder chunk, and TTFC.
@@ -48,7 +49,12 @@ parent.
              greedy steps from position 0 (ms a step, best of two, and the
              device's span of its one launch with the host ahead).
   requests   five warm 14-word streaming requests: TTFC median and the
-             streaming RTF (all wall over all audio).
+             streaming RTF (all wall over all audio), then one more under
+             `torch.profiler`: the device's busy share of its wall (kernel
+             time over wall) and its `cudaGraphLaunch` calls; for each value
+             of `fused_chunks` the tree's `TTSConfig` has (both, on one set
+             of weights: the CUDA-graph path and the eager loop; a tree
+             without the field runs its only path).
 
 Every line carries the card's name and power limit. The full profiler
 tables go to `chiprun_out/profile_port.txt`.
@@ -336,6 +342,12 @@ def phases(eng, card):
     from qwen_tts_tpu_torch.engine import tts_engine
     from qwen_tts_tpu_torch.runtime import frame_loop
 
+    if getattr(eng.config, "fused_chunks", False):   # a replayed graph has no phases to time
+        import dataclasses
+
+        eager = type(eng)(dataclasses.replace(eng.config, quantize=False, fused_chunks=False))
+        eager.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
+        eng = eager
     times = defaultdict(list)
 
     def timed(mod, name, label):
@@ -444,12 +456,36 @@ def steps(eng, card, positions=POSITIONS):
 
 
 def requests(eng, card, n: int = 5):
-    _stream(eng, TEXT)                            # warm
-    runs = [_stream(eng, TEXT) for _ in range(n)]
-    ttfc = sorted(r[0] * 1e3 for r in runs)
-    rtf = sum(r[1] for r in runs) / sum(r[2] for r in runs)
-    print(f"requests: {n} warm 14-word streaming requests: TTFC median {ttfc[n // 2]:.2f} ms "
-          f"(min {ttfc[0]:.2f}, max {ttfc[-1]:.2f}), streaming RTF {rtf:.4f} [{card}]")
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    engines = [eng]
+    if hasattr(eng.config, "fused_chunks"):       # the other path, on the same weights
+        other = type(eng)(dataclasses.replace(eng.config, quantize=False,
+                                              fused_chunks=not eng.config.fused_chunks))
+        other.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
+        engines.append(other)
+    for e in engines:
+        path = {True: "graph", False: "eager"}.get(getattr(e.config, "fused_chunks", None),
+                                                   "eager (no fused_chunks)")
+        _stream(e, TEXT)                          # warm
+        runs = [_stream(e, TEXT) for _ in range(n)]
+        ttfc = sorted(r[0] * 1e3 for r in runs)
+        rtf = sum(r[1] for r in runs) / sum(r[2] for r in runs)
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _ttfc, wall, _ = _stream(e, TEXT)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy_s = sum(_device_us(x) for x in events
+                     if x.device_type.name == "CUDA" and _device_us(x) > 0) / 1e6
+        graphs = sum(x.count for x in events if x.key == "cudaGraphLaunch")
+        print(f"requests [{path}]: {n} warm 14-word streaming requests: TTFC median "
+              f"{ttfc[n // 2]:.2f} ms (min {ttfc[0]:.2f}, max {ttfc[-1]:.2f}), streaming RTF "
+              f"{rtf:.4f}; one more profiled: device busy {busy_s / wall:.4f} of its "
+              f"{wall:.3f} s wall, {graphs} cudaGraphLaunch [{card}]")
 
 
 def main() -> int:
@@ -472,7 +508,8 @@ def main() -> int:
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
     which = [a for a in args if "=" not in a] or ["profile", "phases", "positions"]
-    options = dict(a.split("=", 1) for a in args if "=" in a)
+    options = {k: {"True": True, "False": False}.get(v, v)
+               for k, v in (a.split("=", 1) for a in args if "=" in a)}
     card = _card()
     eng = TTSEngine(TTSConfig(**options))
     eng.initialize()
