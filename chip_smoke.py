@@ -105,7 +105,27 @@ is printed):
      request under `torch.profiler`: one `cudaGraphLaunch` a chunk plus one
      for the first chunk, the host's other CUDA calls a chunk, and the
      device's busy share of the wall; TTFC and RTF medians of both paths on
-     one line.
+     one line;
+ 14. a local checkpoint and the Code2Wav vocoder at full width (the talker
+     at 28 layers, `Code2WavConfig()`): phase 3's bf16 weights written by
+     the port's safetensors writer under the reference key names, beside a
+     `code2wav.safetensors` made from a seed under the torch module's key
+     names (norm scales 1 + N(0, 0.02), the rest N(0, 0.02)); an engine
+     built from `model_path` and `vocoder_path` (`vocoder_backend=
+     "code2wav"`, the load timed) streams the codes and audio of one handed
+     the same weights, bit for bit; for `vocoder_dtype` float32 and
+     bfloat16, the graph path against the eager loop on phase 13's requests
+     (codes bit for bit, audio within 1e-4), the decode kernel's own launch
+     count on the graph path equal to its decode steps, `synthesize` equal
+     to the streamed chunks joined; Code2Wav on the card against the CPU on
+     the same 35 frames (relative L2 <= 1e-3 in f32, cosine >= 0.995 in
+     bf16); two bf16 requests interleaved chunk by chunk on one engine give
+     what each gives alone, bit for bit, with the host's time of a park
+     (waiting for the holder's in-flight chunks included) and a restore;
+     TTFC (median of five warm requests) and streaming RTF of both dtypes
+     and of the default path, and Code2Wav's device ms a chunk
+     (one CUDA graph of the decode, replayed between CUDA events) with
+     cuDNN's heuristic algorithms and with `cudnn.benchmark`'s timed ones.
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form as well; the last line is {"ok": true, "device":
 {...}}. JAX and the JAX package are blocked for the whole run: the port
@@ -254,6 +274,24 @@ def _span_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int) -> float:
+    """The device's time per call of `fn` captured as one CUDA graph (after
+    two eager runs on the capture's stream, which set up its libraries) and
+    replayed `iters` times between CUDA events: no host enqueue in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(graph.replay, iters, warmup=2)
 
 
 def _interleaved(kernel, plain, iters: int, plain_iters: int, warmup: int = 3,
@@ -954,6 +992,256 @@ def time_generate(cfg, w, card, kv8: bool = False, label: str = "bf16"):
 _T0 = time.perf_counter()
 
 
+def synthetic_code2wav_state(cfg, seed: int, device) -> dict:
+    """A Code2Wav state dict under the torch module's key names, f32 on
+    `device`, from a seed: norm scales 1 + N(0, 0.02), everything else
+    N(0, 0.02) (the scale of the module's own initializer)."""
+    import torch
+    from qwen_tts_tpu_torch.vocoder.code2wav import code2wav_state, init_code2wav_weights
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shapes = {k: v.shape for k, v in code2wav_state(
+        init_code2wav_weights(0, cfg, "meta"), cfg).items()}
+    return {k: float(k.endswith("norm.weight")) + 0.02 * torch.randn(
+        s, generator=gen, device=device) for k, s in shapes.items()}
+
+
+def code2wav_flops(cfg, frames: int) -> float:
+    """Multiply-adds x 2 of one Code2Wav decode of `frames` frames (the
+    transformer's products and every conv), from the shapes."""
+    h, t = cfg.hidden_size, frames
+    qkv = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) * cfg.head_dim
+    per_layer = t * h * (qkv + cfg.num_attention_heads * cfg.head_dim + 3 * cfg.intermediate_size)
+    per_layer += 2 * t * min(t, cfg.sliding_window) * cfg.num_attention_heads * cfg.head_dim
+    macs = cfg.num_hidden_layers * per_layer
+    for r in cfg.upsampling_ratios:
+        macs += h * h * r * t                                   # k = r transposed conv
+        t *= r
+        macs += h * 7 * t + 8 * h * h * t                       # ConvNeXt
+    c = cfg.decoder_dim
+    macs += h * c * 7 * t
+    for r in cfg.upsample_rates:
+        macs += c * (c // 2) * 2 * r * t                        # k = 2r transposed conv
+        t, c = t * r - r, c // 2
+        macs += 3 * (c * c * 7 + c * c) * t                     # residual units
+    return 2.0 * (macs + c * 7 * t)
+
+
+def _timed(fn, sync_first: bool = True):
+    """fn() with the card synchronised after it, and before it unless
+    `sync_first` is False (then the time includes waiting for work already
+    queued): (result, seconds)."""
+    import torch
+
+    if sync_first:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _warm_ttfc_rtf(eng, n: int = 5) -> dict:
+    """TTFC median of `n` warm streaming requests of TEXTS[1], and their
+    streaming RTF (all wall over all audio)."""
+    stream(eng, TEXTS[1])
+    runs = [stream(eng, TEXTS[1]) for _ in range(n)]
+    ttfc = sorted(r[0] * 1e3 for r in runs)
+    audio_s = sum(sum(len(c) for c in r[2]) for r in runs) / eng.sample_rate
+    return {"ttfc_ms_median": ttfc[n // 2], "ttfc_ms_min": ttfc[0], "ttfc_ms_max": ttfc[-1],
+            "rtf": sum(r[1] for r in runs) / audio_s}
+
+
+def code2wav_phase(eng, card: str, c2c=None) -> dict:
+    """Phase 14: a checkpoint round trip and the Code2Wav vocoder (at
+    `c2c`, the public `Code2WavConfig()` unless given; see the module
+    docstring). `eng` is phase 3's bf16 engine: every engine here takes its
+    configuration, model and device, with the vocoder options changed."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.core.safetensors import save_file
+    from qwen_tts_tpu_torch.core.weights import load_tts_weights, tts_state_dict
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSEngine
+    from qwen_tts_tpu_torch.vocoder.code2wav import (
+        Code2WavConfig,
+        convert_code2wav_state,
+        named_leaves,
+    )
+    from qwen_tts_tpu_torch.vocoder.code2wav_fast import (
+        code2wav_apply_packed,
+        pack_code2wav_weights,
+    )
+    from qwen_tts_tpu_torch.vocoder.loader import load_code2wav
+
+    mc, dev, c2c = eng.model_config, eng.device, c2c or Code2WavConfig()
+    state = synthetic_code2wav_state(c2c, SEED + 21, dev)
+    c2w = convert_code2wav_state(state, c2c, dev)
+    stack = lambda chunks: np.stack([f for _a, fr in chunks for f in fr])  # noqa: E731
+    res = {"card": card}
+
+    def config(**kw):
+        return dataclasses.replace(eng.config, vocoder_backend="code2wav", code2wav_config=c2c,
+                                   **kw)
+
+    def engine(**kw):
+        e = TTSEngine(config(**kw), model_config=mc)
+        e.initialize(weights=eng.weights, vocoder_weights=c2w)
+        return e
+
+    # 1. the checkpoint round trip
+    with tempfile.TemporaryDirectory() as d:
+        _, write_s = _timed(lambda: (save_file(tts_state_dict(eng.weights, mc),
+                                               f"{d}/model.safetensors"),
+                                     save_file(state, f"{d}/code2wav.safetensors")))
+        _, load_w_s = _timed(lambda: load_tts_weights(d, mc, dev, verbose=False))
+        _, load_v_s = _timed(lambda: load_code2wav(d, c2c, dev))
+        peng = TTSEngine(config(model_path=d, vocoder_path=d), model_config=mc)
+        _, init_s = _timed(peng.initialize)
+    del state
+    meng = engine()
+    assert not peng._vocoder_is_random
+    p_out, _ = serve(peng, synthesize=False, request0=300)
+    m_out, _ = serve(meng, synthesize=False, request0=300)
+    same = all(np.array_equal(stack(a[3]), stack(b[3])) and all(
+        np.array_equal(x, y) for (x, _), (y, _) in zip(a[3], b[3])) for a, b in zip(p_out, m_out))
+    res["checkpoint"] = {
+        "tokenizer": type(peng.tokenizer).__name__, "write_s": write_s,
+        "load_tts_weights_s": load_w_s, "load_code2wav_s": load_v_s,
+        "engine_init_from_path_s": init_s, "codes_and_audio_equal_in_memory_engine": same,
+        "tts_values": sum(v.numel() for v in tts_state_dict(eng.weights, mc).values()),
+        "c2w_values": sum(t.numel() for _p, t in named_leaves(c2w))}
+    print(f"checkpoint round trip (model.safetensors {res['checkpoint'].pop('tts_values')}"
+          f" bf16 values, code2wav.safetensors {res['checkpoint'].pop('c2w_values')} f32): "
+          f"{json.dumps(res['checkpoint'])} {card}")
+    assert same and res["checkpoint"]["tokenizer"] == "FallbackTokenizer", res
+    del meng
+
+    # 2. graph against eager, both dtypes; launches; synthesize; GPU against CPU
+    res["dtypes"] = {}
+    graphs = {"float32": peng, "bfloat16": engine(vocoder_dtype="bfloat16")}
+    for dt, g in graphs.items():
+        e = engine(vocoder_dtype=dt, fused_chunks=False)
+        serve(e, TEXTS[:1], synthesize=False, request0=190)         # warm
+        m0, d0 = g.get_metrics(), g.decode_launches()
+        g_out, _ = serve(g, synthesize=False, request0=310)
+        launches = g.decode_launches() - d0
+        m1 = g.get_metrics()
+        steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
+        e_out, _ = serve(e, synthesize=False, request0=310)
+        r = {"requests": [], "decode_step_launches": launches, "decode_steps": steps}
+        for a, b in zip(g_out, e_out):
+            ga, ea = a[3], b[3]
+            r["requests"].append({
+                "chunks": len(ga), "frames": int(sum(len(f) for _x, f in ga)),
+                "codes_equal": [len(f) for _x, f in ga] == [len(f) for _x, f in ea]
+                and bool(np.array_equal(stack(ga), stack(ea))),
+                "audio_max_abs_diff": max(float(np.abs(x - y).max())
+                                          for (x, _), (y, _) in zip(ga, ea)),
+                "audio_max_abs": max(float(np.abs(x).max()) for x, _ in ga)})
+        g._requests = 319
+        wav, _sr = g.synthesize(TEXTS[1])
+        g._requests = 319
+        joined = np.concatenate([a for a, _f in g._generate_chunks(TEXTS[1], 10, True)])
+        r["synthesize_equals_stream"] = bool(np.array_equal(wav, joined))
+        print(f"code2wav [{dt}], graph against eager: {json.dumps(r)} {card}")
+        assert launches == steps > 0, r
+        assert r["synthesize_equals_stream"], r
+        for q in r["requests"]:
+            assert q["codes_equal"] and q["audio_max_abs_diff"] <= 1e-4, r
+        res["dtypes"][dt] = r
+        del e
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    codes = torch.randint(0, 3072, (35, mc.num_code_groups), generator=gen, device=dev)
+    w_cpu = pack_code2wav_weights(_map(lambda t: t.cpu(), c2w), torch.float32)
+    (ref,), cpu_s = _timed(lambda: code2wav_apply_packed(
+        c2c, w_cpu, codes.clamp(0, c2c.codebook_size - 1).t()[None].cpu()))
+    ref = ref.double()
+    cmp = {"frames": 35, "cpu_s": cpu_s, "cpu_max_abs": float(ref.abs().max()),
+           "cpu_clipped_share": float((ref.abs() >= 1).double().mean())}
+    for dt, g in graphs.items():
+        out = g._raw_decode(codes).double().cpu()
+        cmp[dt] = {"rel_l2": float((out - ref).norm() / ref.norm()), "cosine": _cos(out, ref),
+                   "max_abs_diff": float((out - ref).abs().max())}
+    print(f"code2wav on the card against the CPU (f32 packed), same 35 frames: "
+          f"{json.dumps(cmp)} {card}")
+    assert cmp["float32"]["rel_l2"] <= 1e-3 and cmp["bfloat16"]["cosine"] >= 0.995, cmp
+    res["gpu_vs_cpu"] = cmp
+
+    # 3. two bf16 requests interleaved chunk by chunk on one engine
+    g = graphs["bfloat16"]
+    alone = [serve(g, (t,), synthesize=False, request0=330 + i)[0][0][3]
+             for i, t in enumerate(TEXTS[1:])]
+    times = {"park": [], "restore": []}
+    for name in times:
+        real = getattr(g, f"_{name}")
+
+        def timed(s, _real=real, _name=name):
+            times[_name].append(_timed(lambda: _real(s), sync_first=False)[1] * 1e3)
+        setattr(g, f"_{name}", timed)
+    try:
+        g._requests = 329
+        its = [iter(g._generate_chunks(t, 10, True)) for t in TEXTS[1:]]
+        got, live = [[], []], [0, 1]
+        while live:
+            for i in list(live):
+                c = next(its[i], None)
+                if c is None:
+                    live.remove(i)
+                else:
+                    got[i].append(c)
+    finally:
+        del g._park, g._restore
+    inter = {"chunks": [len(c) for c in got], "parks": len(times["park"]),
+             "park_ms": times["park"], "restore_ms": times["restore"],
+             "equal_alone": all(
+                 [len(f) for _x, f in a] == [len(f) for _x, f in b]
+                 and np.array_equal(stack(a), stack(b))
+                 and all(np.array_equal(x, y) for (x, _), (y, _) in zip(a, b))
+                 for a, b in zip(alone, got))}
+    print(f"code2wav [bfloat16], two requests interleaved chunk by chunk: {json.dumps(inter)} "
+          f"{card}")
+    assert inter["equal_alone"] and inter["parks"] >= 2, inter
+    res["interleaved"] = inter
+
+    # 4. timings
+    res["timings"] = {"default (fast vocoder)": _warm_ttfc_rtf(eng)}
+    for dt, g in graphs.items():
+        res["timings"][f"code2wav {dt}"] = _warm_ttfc_rtf(g)
+    res["timings"]["default (fast vocoder), again"] = _warm_ttfc_rtf(eng)
+    for k, v in res["timings"].items():
+        print(f"main path [{k}]: TTFC median {v['ttfc_ms_median']:.2f} ms (min "
+              f"{v['ttfc_ms_min']:.2f}, max {v['ttfc_ms_max']:.2f}), streaming RTF "
+              f"{v['rtf']:.4f} (five warm 14-word requests) {card}")
+    n, hop = 10, c2c.hop_length
+    chunk, ctx = codes[:n].clone(), codes[n:2 * n].clone()
+    flops = code2wav_flops(c2c, 2 * n)
+    res["chunk_ms"] = {}
+    for bench in (False, True):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            for dt, g in graphs.items():
+                ms = _graph_ms(lambda: g._frames_decode(chunk, ctx), 20)
+                first = _graph_ms(lambda: g._frames_decode(chunk[:1]), 20)
+                key = f"{dt}, cudnn.benchmark={bench}"
+                res["chunk_ms"][key] = {"chunk_ms": ms, "first_chunk_ms": first,
+                                        "chunk_tflop_s": flops / ms / 1e9}
+        finally:
+            torch.backends.cudnn.benchmark = False
+    print(f"code2wav device ms a chunk ({n} frames after {n} of context: {flops / 1e9:.1f} "
+          f"GFLOP; the first chunk: 1 frame), CUDA-graph replays: "
+          f"{json.dumps(res['chunk_ms'])} {card}")
+    assert all(len(a) == n * hop for a in [g._frames_decode(chunk, ctx) for g in graphs.values()])
+    del graphs, peng, g
+    return res
+
+
 def _phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - _T0:.1f} s")
 
@@ -1255,6 +1543,11 @@ def main() -> int:
     del qeng
 
     _phase_done(13)
+
+    # ── phase 14: a local checkpoint and the Code2Wav vocoder at full width ──
+    c2w_res = code2wav_phase(eng, card)
+
+    _phase_done(14)
     assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
                                                  *gerr.values()])
     a300 = attn_t[300]
@@ -1267,7 +1560,9 @@ def main() -> int:
          "device_span_ms": t_dev, "cp_ms": c_k, "cp_device_span_ms": c_dev, "cp_plain_ms": c_p,
          "cp_bound_ms": c_b,
          "by_position": {str(p): v for p, v in step_pos.items()},
-         "kernels_per_step": per_step, "grid": grid, "engine": engine_t},
+         "kernels_per_step": per_step, "grid": grid, "engine": engine_t,
+         "code2wav_graph_launches": {dt: r["decode_step_launches"]
+                                     for dt, r in c2w_res["dtypes"].items()}},
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",

@@ -6,16 +6,23 @@ stacked on a leading `[L, ...]` axis, projection matrices are stored
 gate|up are fused on the output axis. Keeping the layout identical lets
 `from_jax` convert the JAX package's parameters leaf by leaf and lets the
 CUDA decode-step kernel read the same slabs the Pallas kernel streamed.
+
+`load_tts_weights` reads a local checkpoint under the reference key names
+(the JAX package's :245-321), through the port's own safetensors reader
+(`core/safetensors.py`): the machine with the GPU has no `safetensors`.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .config import DecoderConfig, TTSModelConfig
+from .safetensors import SafeTensorsFile
 
 # Extra rope-table rows when M-RoPE is on: section positions may run ahead
 # of the cache position (the JAX package's MROPE_HEADROOM).
@@ -143,6 +150,145 @@ def init_tts_weights(seed: int, cfg: TTSModelConfig, device="cuda") -> TTSWeight
         fc2_b=torch.zeros((tp.hidden_size,), dtype=bf, device=device),
     )
     return TTSWeights(talker=talker, code_predictor=cp, text_projection=text)
+
+
+# ── checkpoint loading (counterpart of core/weights.py:96-109, 245-321) ────
+
+_LAYER_KEYS = (
+    ("input_norm", "input_layernorm.weight", False),
+    ("q_norm", "self_attn.q_norm.weight", False),
+    ("k_norm", "self_attn.k_norm.weight", False),
+    ("wo", "self_attn.o_proj.weight", True),
+    ("post_norm", "post_attention_layernorm.weight", False),
+    ("w_down", "mlp.down_proj.weight", True),
+)
+_FUSED_KEYS = (("wqkv", ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+                         "self_attn.v_proj.weight")),
+               ("w_gate_up", ("mlp.gate_proj.weight", "mlp.up_proj.weight")))
+
+
+def _checkpoint_file(model_path: str) -> str:
+    """`<dir>/model.safetensors`; a path that is not a directory is taken
+    as a hub id (downloaded by `huggingface_hub`, which the GPU host lacks)."""
+    if os.path.isdir(model_path):
+        return os.path.join(model_path, "model.safetensors")
+    from huggingface_hub import hf_hub_download
+
+    return hf_hub_download(model_path, "model.safetensors")
+
+
+def _stack_layers(f: SafeTensorsFile, prefix: str, num_layers: int, device) -> LayerWeights:
+    """Stack per-layer torch-layout tensors into bf16 `[L, ...]` on `device`,
+    transposing matrices to `[in, out]` and fusing q|k|v and gate|up on the
+    output axis."""
+    def get(i, suffix, transpose):
+        t = f.get(f"{prefix}{i}.{suffix}").to(device)
+        return t.t() if transpose else t
+
+    out = {field: torch.stack([get(i, suffix, tr) for i in range(num_layers)]).to(torch.bfloat16)
+           for field, suffix, tr in _LAYER_KEYS}
+    for field, suffixes in _FUSED_KEYS:
+        out[field] = torch.stack([torch.cat([get(i, s, True) for s in suffixes], dim=1)
+                                  for i in range(num_layers)]).to(torch.bfloat16)
+    return LayerWeights(**out)
+
+
+def load_tts_weights(model_path: str, cfg: TTSModelConfig | None = None, device="cuda",
+                     verbose: bool = True) -> TTSWeights:
+    """Qwen3-TTS weights, bf16 on `device`, from `<model_path>/model.safetensors`
+    under the reference key names: talker layers under
+    `talker.model.layers.*`, the untied `talker.codec_head`, the code
+    predictor under `talker.code_predictor.*`, the text projection under
+    `talker.text_projection.*`. The file is mapped, and each tensor goes to
+    `device` before it is transposed, fused and cast."""
+    cfg = cfg or TTSModelConfig()
+    path = _checkpoint_file(model_path)
+    if verbose:
+        print(f"Loading TTS weights from {path}...")
+    bf = torch.bfloat16
+    f = SafeTensorsFile(path)
+
+    def leaf(name, transpose=False):
+        t = f.get(name).to(device)
+        return (t.t() if transpose else t).to(dtype=bf, copy=True).contiguous()
+
+    tcfg, ccfg = cfg.talker, cfg.code_predictor
+    talker = DecoderWeights(
+        layers=_stack_layers(f, "talker.model.layers.", tcfg.num_layers, device),
+        final_norm=leaf("talker.model.norm.weight"),
+        embed=leaf("talker.model.codec_embedding.weight"),
+        lm_head=leaf("talker.codec_head.weight", transpose=True),
+        rope=make_rope_table(tcfg, device))
+    h, v = ccfg.hidden_size, ccfg.vocab_size
+    cp_dec = DecoderWeights(
+        layers=_stack_layers(f, "talker.code_predictor.model.layers.", ccfg.num_layers, device),
+        final_norm=leaf("talker.code_predictor.model.norm.weight"),
+        embed=torch.zeros((v, h), dtype=bf, device=device),
+        lm_head=torch.zeros((h, v), dtype=bf, device=device),
+        rope=make_rope_table(ccfg, device))
+    groups = range(cfg.num_code_groups - 1)
+    cp = CodePredictorWeights(
+        decoder=cp_dec,
+        lm_heads=torch.stack([f.get(f"talker.code_predictor.lm_head.{g}.weight").to(device).t()
+                              for g in groups]).to(bf),
+        codec_embeds=torch.stack([
+            f.get(f"talker.code_predictor.model.codec_embedding.{g}.weight").to(device)
+            for g in groups]).to(bf))
+    tp = TextProjectionWeights(
+        text_embedding=leaf("talker.model.text_embedding.weight"),
+        fc1_w=leaf("talker.text_projection.linear_fc1.weight", transpose=True),
+        fc1_b=leaf("talker.text_projection.linear_fc1.bias"),
+        fc2_w=leaf("talker.text_projection.linear_fc2.weight", transpose=True),
+        fc2_b=leaf("talker.text_projection.linear_fc2.bias"))
+    if verbose:
+        n = sum(math.prod(f.shape(k)) for k in f.keys()) / 1e6
+        print(f"Loaded {len(f.keys())} tensors ({n:.1f}M params)")
+    return TTSWeights(talker=talker, code_predictor=cp, text_projection=tp)
+
+
+def load_speaker_encoder(model_path: str, device="cuda") -> dict[str, torch.Tensor]:
+    """The checkpoint's `speaker_encoder.*` tensors on `device` (loaded on
+    request only: nothing uses them, as in the reference)."""
+    f = SafeTensorsFile(_checkpoint_file(model_path))
+    return {k: f.get(k).to(device, copy=True) for k in f.keys()
+            if k.startswith("speaker_encoder.")}
+
+
+def tts_state_dict(w: TTSWeights, cfg: TTSModelConfig) -> dict[str, torch.Tensor]:
+    """bf16 `TTSWeights` → the reference checkpoint's tensors by key name
+    (torch layouts, q|k|v and gate|up split): what `load_tts_weights` reads."""
+    def layers(lw: LayerWeights, prefix: str, dc: DecoderConfig):
+        splits = {"wqkv": (dc.q_size, dc.kv_size, dc.kv_size),
+                  "w_gate_up": (dc.intermediate_size, dc.intermediate_size)}
+        out = {}
+        for i in range(dc.num_layers):
+            for field, suffix, tr in _LAYER_KEYS:
+                t = getattr(lw, field)[i]
+                out[f"{prefix}{i}.{suffix}"] = t.t() if tr else t
+            for field, suffixes in _FUSED_KEYS:
+                for s, t in zip(suffixes, getattr(lw, field)[i].split(splits[field], dim=1)):
+                    out[f"{prefix}{i}.{s}"] = t.t()
+        return out
+
+    tw, cw, tp = w.talker, w.code_predictor, w.text_projection
+    state = layers(tw.layers, "talker.model.layers.", cfg.talker)
+    state.update(layers(cw.decoder.layers, "talker.code_predictor.model.layers.",
+                        cfg.code_predictor))
+    state.update({
+        "talker.model.norm.weight": tw.final_norm,
+        "talker.model.codec_embedding.weight": tw.embed,
+        "talker.codec_head.weight": tw.lm_head.t(),
+        "talker.code_predictor.model.norm.weight": cw.decoder.final_norm,
+        "talker.model.text_embedding.weight": tp.text_embedding,
+        "talker.text_projection.linear_fc1.weight": tp.fc1_w.t(),
+        "talker.text_projection.linear_fc1.bias": tp.fc1_b,
+        "talker.text_projection.linear_fc2.weight": tp.fc2_w.t(),
+        "talker.text_projection.linear_fc2.bias": tp.fc2_b,
+    })
+    for g in range(cw.lm_heads.shape[0]):
+        state[f"talker.code_predictor.lm_head.{g}.weight"] = cw.lm_heads[g].t()
+        state[f"talker.code_predictor.model.codec_embedding.{g}.weight"] = cw.codec_embeds[g]
+    return state
 
 
 # ── weight-only quantization (counterpart of core/weights.py:327-659) ───────

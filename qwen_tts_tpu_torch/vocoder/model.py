@@ -71,7 +71,8 @@ class VocoderWeights(NamedTuple):
 
 
 def init_vocoder_weights(seed: int, cfg: VocoderConfig, device="cuda") -> VocoderWeights:
-    gen = torch.Generator(device=device)
+    """Seeded random weights on `device` ("meta" gives the shapes alone)."""
+    gen = torch.Generator(device="cpu" if torch.device(device).type == "meta" else device)
     gen.manual_seed(seed)
 
     def mat(shape, fan_in):

@@ -185,13 +185,12 @@ def test_metrics_and_nonstreaming_length(port):
 
 
 @pytest.mark.parametrize("kw", [dict(quantize="int2"), dict(kv_cache="fp8"),
-                                dict(vocoder_backend="code2wav"), dict(cp_quantize="int3"),
-                                dict(model_path="/nonexistent")])
+                                dict(vocoder_backend="hifigan"), dict(cp_quantize="int3"),
+                                dict(vocoder_mode="loud")])
 def test_unported_options_raise(kw):
-    """Options not ported yet raise NotImplementedError naming the ROADMAP
-    item; unknown quantize / kv_cache / cp_quantize values raise the JAX
-    engine's ValueError."""
-    unported = {"vocoder_backend", "model_path"} & kw.keys()
-    with pytest.raises(NotImplementedError if unported else ValueError,
-                       match="ROADMAP" if unported else "unknown"):
+    """Unknown quantize / kv_cache / cp_quantize / vocoder values raise the
+    JAX engine's ValueError, when the engine is made. (Checkpoint loading
+    and the Code2Wav vocoder are ported: `test_torch_checkpoint.py`,
+    `test_torch_code2wav.py`.)"""
+    with pytest.raises(ValueError, match="unknown"):
         TTSEngine(TTSConfig(**kw))

@@ -5,8 +5,9 @@ them, so these tests hold the restructured body (device trailing index and
 length, a buffer of uniform draws transformed in the body, one code-predictor
 state reset in place) to the eager frame loop it replaces, bit for bit; the
 first-chunk body to the JAX engine's `first_fn`; the fused engine to the
-eager one; and the speculation policy, the one-request-per-engine rule and
-the room check of the JAX engine's `_generate_audio_chunks`. One `gpu` test
+eager one; the speculation policy and the room check of the JAX engine's
+`_generate_audio_chunks`; and interleaved streams of one engine to the
+same streams alone. One `gpu` test
 holds a captured chunk to the eager chunk on the card."""
 
 import jax
@@ -269,14 +270,42 @@ def test_speculation_depth_and_a_closed_stream(tiny_cfg, weights, fused, monkeyp
     np.testing.assert_array_equal(_frames(again), _frames(fresh))
 
 
-def test_resumed_stream_of_an_earlier_request_raises(fused):
-    first = iter(fused._generate_chunks(TEXT, 10, with_audio=True))
-    next(first)
-    second = iter(fused._generate_chunks(TEXT, 10, with_audio=True))
-    next(second)
-    with pytest.raises(RuntimeError, match="one fused stream at a time"):
-        next(first)
-    assert len(next(second)[1]) == 10                         # the new one goes on
+def _interleaved(eng, texts, k, request0):
+    """Streams of `texts` on one engine, numbered from `request0`, advanced
+    one chunk each in turn until all end: their chunks, stream by stream."""
+    eng._requests = request0 - 1
+    streams = [iter(eng._generate_chunks(t, k, with_audio=True)) for t in texts]
+    got, live = [[] for _ in texts], list(range(len(texts)))
+    while live:
+        for i in list(live):
+            chunk = next(streams[i], None)
+            if chunk is None:
+                live.remove(i)
+            else:
+                got[i].append(chunk)
+    return got
+
+
+def test_resumed_stream_of_an_earlier_request_raises(fused, monkeypatch):
+    """Two live streams of one engine, interleaved chunk by chunk while
+    chunks of each are in flight (the one-request-per-engine fault, now
+    repaired): resuming the earlier stream raises nothing, and each stream
+    yields, bit for bit, the codes and audio it yields alone. The second
+    stream takes the engine's state twice with unread chunks of the first
+    in the ring (parked), and gives it back."""
+    texts = (TEXT, "one two three four five six seven")
+    alone = [_chunks(fused, t, 10, request=81 + i) for i, t in enumerate(texts)]
+    parks = []
+    real = fused._park
+    monkeypatch.setattr(fused, "_park", lambda s: (parks.append(len(s.pending)), real(s)))
+    got = _interleaved(fused, texts, 10, 81)
+    assert len(parks) >= 3 and max(parks) == 2, parks
+    for a, b in zip(alone, got):
+        assert [len(fr) for _x, fr in a] == [len(fr) for _x, fr in b]
+        np.testing.assert_array_equal(_frames(a), _frames(b))
+        for (x, _), (y, _) in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert fused._owner is None
 
 
 def test_room_check_raises_before_the_replay(tiny_cfg, weights, monkeypatch):

@@ -22,7 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL_BLOCKED = """
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ('jax', 'jaxlib', 'qwen_tts_tpu')
+BLOCKED = tuple(sys.argv[1:])
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         if name.split('.')[0] in BLOCKED:
@@ -35,16 +35,34 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not any(m.split('.')[0] in BLOCKED for m in sys.modules), sorted(sys.modules)
-print(len(names))
+print(" ".join(names))
 """
+_JAX = ("jax", "jaxlib", "qwen_tts_tpu")
+
+
+def _import_all(*blocked: str) -> list[str]:
+    """Import every module of the port and `chip_smoke` in a fresh process
+    with `blocked` packages refused; the module names."""
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED, *blocked], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.split()
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
-    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL_BLOCKED], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20          # every module was imported
+    names = _import_all(*_JAX)
+    assert len(names) >= 20          # every module was imported
+    assert {"qwen_tts_tpu_torch.core.safetensors", "qwen_tts_tpu_torch.vocoder.code2wav",
+            "qwen_tts_tpu_torch.vocoder.code2wav_fast",
+            "qwen_tts_tpu_torch.vocoder.loader"} <= set(names)
+
+
+def test_port_imports_no_file_or_tokenizer_library_at_module_level():
+    """The GPU host has neither `safetensors` nor `transformers`: the port
+    reads checkpoints itself and imports the tokenizer and hub libraries
+    only inside the calls that use them."""
+    assert len(_import_all(*_JAX, "safetensors", "transformers", "huggingface_hub")) >= 20
 
 
 def test_smoke_blocker_refuses_jax_and_the_jax_package():

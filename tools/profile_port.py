@@ -2,7 +2,8 @@
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
     python3 tools/profile_port.py [--root DIR] [--positions P,...] [profile] [phases]
-                                  [positions] [forms] [steps] [requests] [field=value ...]
+                                  [positions] [forms] [steps] [vocoder] [requests]
+                                  [field=value ...]
 
 With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
 random weights from seed 0, `TTSConfig()` on the card, with any
@@ -48,6 +49,13 @@ parent.
              300, 4095 and 8191 (device us per call); generation, 256
              greedy steps from position 0 (ms a step, best of two, and the
              device's span of its one launch with the host ahead).
+  vocoder    the engine's vocoder alone (`vocoder_backend=code2wav` and
+             `vocoder_dtype=...` pick Code2Wav's form): a chunk of
+             `chunk_frames` frames (after as many frames of context, for
+             Code2Wav) and the first chunk of one frame, each captured as a
+             CUDA graph and replayed between CUDA events, with cuDNN's
+             heuristic algorithms and with `cudnn.benchmark`'s timed ones;
+             then one chunk's device time by kernel (profiler, eager).
   requests   five warm 14-word streaming requests: TTFC median and the
              streaming RTF (all wall over all audio), then one more under
              `torch.profiler`: the device's busy share of its wall (kernel
@@ -455,6 +463,43 @@ def steps(eng, card, positions=POSITIONS):
           f"{1 - span / ms:.3f}) [{card}]")
 
 
+def vocoder(eng, card, out):
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    chip_smoke = _smoke()
+    n, groups = eng.config.chunk_frames, eng.model_config.num_code_groups
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    codes = torch.randint(0, 2048, (2 * n, groups), generator=gen, device="cuda")
+    ctx = codes[n:] if eng.config.vocoder_backend == "code2wav" else None
+    chunk = lambda: eng._frames_decode(codes[:n], ctx)  # noqa: E731
+    first = lambda: eng._frames_decode(codes[:1])  # noqa: E731
+    form = f"{eng.config.vocoder_backend} {eng.config.vocoder_dtype}"
+    for bench in (False, True, False):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            ms, ms1 = chip_smoke._graph_ms(chunk, 20), chip_smoke._graph_ms(first, 20)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        print(f"vocoder [{form}], cudnn.benchmark={bench}: a {n}-frame chunk {ms:.4f} ms, "
+              f"the first chunk (1 frame) {ms1:.4f} ms (CUDA-graph replays) [{card}]")
+    chunk()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            chunk()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if _device_us(e) > 0 and e.device_type.name == "CUDA"]
+    print(f"vocoder [{form}]: one chunk's device time by kernel (5 chunks profiled, eager, "
+          f"cudnn.benchmark=False), {sum(_device_us(e) for e in dev) / 5e3:.3f} ms in all:")
+    for e in sorted(dev, key=_device_us, reverse=True)[:12]:
+        print(f"  device {_device_us(e) / 5e3:8.3f} ms  {e.count / 5:6.1f} calls  {e.key[:90]}")
+    out.write(f"== vocoder {form}, 5 chunks ==\n" + prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40) + "\n")
+
+
 def requests(eng, card, n: int = 5):
     import dataclasses
 
@@ -527,6 +572,8 @@ def main() -> int:
                 forms(eng, card, out, positions or (300,))
             elif name == "steps":
                 steps(eng, card, positions or POSITIONS)
+            elif name == "vocoder":
+                vocoder(eng, card, out)
             elif name == "requests":
                 requests(eng, card)
             else:
