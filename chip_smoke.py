@@ -54,8 +54,8 @@ is printed):
      and 64 steps from a random position-300 cache with M-RoPE deltas
      (0, 5, 9); both held bit for bit (tokens and cache columns) to a loop
      of decode-step launches + `torch.argmax` + `embed[token]`;
-  7. the "pallas" path, `TTSEngine(TTSConfig(backend="pallas",
-     fused_chunks=False))` (its ops take host positions: no graphs): one
+  7. the "pallas" path's eager loop, `TTSEngine(TTSConfig(backend="pallas",
+     fused_chunks=False))` (phase 15 runs its graphs): one
      streaming request with the chunk checks of phase 3 and
      decode-attention launches == 28 x talker steps + 5 x code-predictor
      steps; then the reduced-model GPU-versus-CPU parity of phase 3 on
@@ -99,8 +99,8 @@ is printed):
      RTF;
  13. the graph path against the eager loop: for bf16 (phase 3's engine) and
      int8+kv8 (phase 10's), an engine with `fused_chunks=False` on the same
-     weights serves the three streaming requests and the `synthesize` of
-     phase 3 with the same request numbers: codes equal bit for bit, chunk
+     weights serves phase 3's first two streaming requests and its
+     `synthesize` with the same request numbers: codes equal bit for bit, chunk
      lengths equal, audio within 1e-4 * max(1, max |eager|); one warm
      request under `torch.profiler`: one `cudaGraphLaunch` a chunk plus one
      for the first chunk, the host's other CUDA calls a chunk, and the
@@ -125,7 +125,46 @@ is printed):
      TTFC (median of five warm requests) and streaming RTF of both dtypes
      and of the default path, and Code2Wav's device ms a chunk
      (one CUDA graph of the decode, replayed between CUDA events) with
-     cuDNN's heuristic algorithms and with `cudnn.benchmark`'s timed ones.
+     cuDNN's heuristic algorithms and with `cudnn.benchmark`'s timed ones;
+ 15. the decode-attention kernel on device positions (one int32 a slot, read
+     by the kernel, its grid fixed by the cache's length) against its plain
+     version at full talker shape, one slot at 0, 1, 63, 64, 300, 4095, 8191
+     and 8192 (a full cache) and four slots at four positions each (0/1/63/
+     64, 300/4095/8191/8192, 8192/65/1025/0) over caches [4, 28, 8, 8192,
+     128], rows past each slot's position poisoned, phase 5's bar, each run
+     twice with the same bits; its device and call time for one and four
+     slots at 300, 4095 and 8191 beside `scaled_dot_product_attention`;
+     then engines with `backend="pallas"` and `"dense"` and
+     `fused_chunks=True` (graphs captured in `initialize()`) against their
+     eager loops on phase 3's weights: phase 13's first request streamed and
+     `synthesize`d, codes equal bit for bit, audio within 1e-4, the
+     decode-attention kernel's own launch count on the graph path equal to
+     the layers times the steps run ("pallas"; none on "dense"), no
+     decode-step kernel, TTFC and RTF medians of both paths; and a talker
+     step of two slots on device positions, one at its cache's end: its
+     column lands in its own last rows only, the other slot as it is beside
+     a neighbour at 3;
+ 16. continuous batching at full width and depth, `TTSConfig(max_seq_len=
+     1024)` on phase 3's weights as `benchmarks/bench_continuous.py` serves
+     it, `ContinuousBatcher(slots=4, chunk_frames=10, admit_chunk_frames=2)`
+     (every graph captured in `warm()`): 8 requests of the smoke's texts
+     150 ms apart, bf16 and then int8 + kv8: each request's audio non-empty,
+     finite and whole hops, no graph captured during traffic, the
+     decode-attention kernel's own launch count equal to its layers times
+     the frames dispatched plus the admissions' first steps; aggregate
+     real-time factor (audio seconds over wall seconds), first audio p50 and
+     p95, the device's busy share (the graphs' time between CUDA events
+     around each replay, over the wall until the device is done); one short request under the
+     profiler (one `cudaGraphLaunch` a chunk or admission); one request of the crowd served
+     alone with its request number gives the same codes; bf16 only:
+     `synthesize_batch` of four short texts against each text alone with
+     its request number, padded to four slots by copies of it (codes equal
+     or first parting at a near tie: two logits or two noisy sampler scores
+     within 2e-2) and on one slot fed the batch's codes (the talker's hidden
+     state at every step within cosine 0.999 of the batch's; at the first
+     choice the slot would have made otherwise, a greedy code 0 within
+     2e-2, or two adjacent top-k logits within 2e-2: a rank swap that
+     reorders the sampler's noise).
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form as well; the last line is {"ok": true, "device":
 {...}}. JAX and the JAX package are blocked for the whole run: the port
@@ -155,6 +194,7 @@ TEXTS = (
 # bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12      # float32 outside the tensor cores
 # Both sides of the attention core's boundaries: one block a kv head up to
 # 64 rows (a tile), one tile a block up to 1,024 rows, then ranges of tiles.
 ATTN_POSITIONS = (0, 1, 63, 64, 65, 255, 256, 257, 300, 1023, 1024, 1025, 4095, 8191)
@@ -162,6 +202,11 @@ ATTN_TIMED = (300, 4095, 8191)
 STEP_TIMED = (30, 300, 4095, 8191)          # talker step times
 STEP_POSITIONS = (0, 1, 300, 4095, 8191)    # talker, decode step vs plain
 ATTN_LAYER = 27
+# Phase 15: B3 on device positions, one slot; a cache of 8192 rows is full at 8192
+ATTN_SLOT_POSITIONS = (0, 1, 63, 64, 300, 4095, 8191, 8192)
+RING_GRAPHS = 3      # chunk graphs of the engine's ring (engine/chunk_graphs.py RING)
+# Phase 16: continuous batching as benchmarks/bench_continuous.py serves it
+SERVE_SEQ, SERVE_SLOTS, SERVE_REQUESTS, SERVE_GAP_S = 1024, 4, 8, 0.15
 GEN_STEPS = 64
 GEN_TIMED_STEPS = 256
 GEN_FORMS = ("int8", "int4", "mixed")   # weight forms of the kv8 generation phases
@@ -240,11 +285,14 @@ def _kernels_seen(fn, iters: int, tries: int = 5) -> dict:
     raise AssertionError(f"the profiler saw no kernel in {tries} runs of {iters} calls")
 
 
-def _device_by_kernel(fn, iters: int) -> dict:
-    """`_kernel_counts`, which must have seen a kernel."""
-    parts = _kernel_counts(fn, iters)
-    assert parts, "the profiler saw no device time"
-    return parts
+def _device_by_kernel(fn, iters: int, tries: int = 5) -> dict:
+    """`_kernel_counts`, run again (up to `tries` times) until the profiler
+    saw a kernel: at times it loses every event of a run."""
+    for _ in range(tries):
+        parts = _kernel_counts(fn, iters)
+        if parts:
+            return parts
+    raise AssertionError(f"the profiler saw no device time in {tries} runs")
 
 
 def _device_ms(fn, iters: int) -> float:
@@ -304,9 +352,9 @@ def _interleaved(kernel, plain, iters: int, plain_iters: int, warmup: int = 3,
     return min(k1, k2), min(p1, p2)
 
 
-def _bound_ms(nbytes: float, flops: float):
+def _bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S):
     """The least time the card could take: (ms, "bytes" or "operations")."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -577,9 +625,10 @@ def run_requests(eng):
     return stats
 
 
-def serve(eng, texts=TEXTS, synthesize: bool = True, request0: int = 200):
+def serve(eng, texts=TEXTS, synthesize: bool = True, request0: int = 200,
+          synthesize_text: str = TEXTS[1]):
     """The streaming requests of `texts`, numbered from `request0`, through
-    the engine's chunk generator, then one `synthesize` of TEXTS[1]:
+    the engine's chunk generator, then one `synthesize` of `synthesize_text`:
     ([(TTFC ms, wall s, audio s, [(audio, frames)...]) per request],
     (waveform, the frames it decoded) or None)."""
     out = []
@@ -598,7 +647,7 @@ def serve(eng, texts=TEXTS, synthesize: bool = True, request0: int = 200):
     seen, real = [], eng._decode_to_audio
     eng._decode_to_audio = lambda frames: (seen.append(list(frames)), real(frames))[1]
     try:
-        wav, _sr = eng.synthesize(TEXTS[1])
+        wav, _sr = eng.synthesize(synthesize_text)
     finally:
         del eng._decode_to_audio
     return out, (wav, seen[-1])
@@ -619,8 +668,8 @@ def graph_against_eager(geng, label: str, card: str) -> dict:
     eeng = TTSEngine(TTSConfig(fused_chunks=False, kv_cache=geng.config.kv_cache))
     eeng.initialize(weights=geng.weights, vocoder_weights=geng.vocoder_weights)
     serve(eeng, TEXTS[:1], synthesize=False, request0=190)     # warm
-    g_out, g_syn = serve(geng)
-    e_out, e_syn = serve(eeng)
+    g_out, g_syn = serve(geng, TEXTS[:2])
+    e_out, e_syn = serve(eeng, TEXTS[:2])
     stack = lambda chunks: np.stack([f for _a, fr in chunks for f in fr])  # noqa: E731
     res = {"form": label, "requests": [], "synthesize": {}}
     for (_t, _w, _s, gc), (_t2, _w2, _s2, ec) in zip(g_out, e_out):
@@ -666,7 +715,7 @@ def graph_against_eager(geng, label: str, card: str) -> dict:
     times = {f"{name}_{k}": med([f(r) for r in out]) for name, out in (("graph", g_out),
                                                                         ("eager", e_out))
              for k, f in (("ttfc_ms", lambda r: r[0]), ("rtf", lambda r: r[1] / r[2]))}
-    print(f"graph against eager [{label}], medians of the three streaming requests: TTFC "
+    print(f"graph against eager [{label}], medians of the two streaming requests: TTFC "
           f"graph {times['graph_ttfc_ms']:.2f} ms, eager {times['eager_ttfc_ms']:.2f} ms; "
           f"RTF graph {times['graph_rtf']:.4f}, eager {times['eager_rtf']:.4f} {card}")
     del eeng
@@ -762,11 +811,13 @@ def _map(fn, tree):
 
 
 def _reset_launches():
+    import torch
+
     from qwen_tts_tpu_torch.ops import attention, decode_step, generate_kernel
 
-    for fn in (decode_step.megakernel_forward, attention.decode_attention,
-               generate_kernel.generate_megakernel):
+    for fn in (decode_step.megakernel_forward, generate_kernel.generate_megakernel):
         fn.launches = 0
+    attention.reset_device_launches(torch.device("cuda"))
 
 
 def attention_inputs(cfg, gen):
@@ -792,6 +843,15 @@ def set_prefix(kc, vc, rows, pos: int):
         cache[ATTN_LAYER, :, pos:] = 99.0
 
 
+def _dev_pos(*positions):
+    """Positions as the decode-attention kernel reads them: a device int32
+    tensor, `[]` for one position, `[B]` for B."""
+    import torch
+
+    t = torch.tensor(positions, dtype=torch.int32, device="cuda")
+    return t[0] if len(positions) == 1 else t
+
+
 def compare_attention(cfg, gen):
     """Phase 5: the decode-attention kernel against its plain version."""
     import torch
@@ -801,9 +861,10 @@ def compare_attention(cfg, gen):
     errs = []
     for pos in ATTN_POSITIONS:
         set_prefix(kc, vc, rows, pos)
-        got = decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, pos)
-        again = decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, pos)
-        want = decode_attention_reference(q, k_new, v_new, kc, vc, ATTN_LAYER, pos)
+        p = _dev_pos(pos)
+        got = decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, p)
+        again = decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, p)
+        want = decode_attention_reference(q, k_new, v_new, kc, vc, ATTN_LAYER, p)
         torch.cuda.synchronize()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         same = torch.equal(got, again)
@@ -820,8 +881,8 @@ def compare_attention(cfg, gen):
         kc2, vc2 = (torch.randn(2, KVH, 1088, 128, generator=gen, device="cuda").bfloat16()
                     for _ in range(2))
         for pos in (0, 65, 1025):
-            got = decode_attention(q2, kn2, vn2, kc2, vc2, 1, pos)
-            want = decode_attention_reference(q2, kn2, vn2, kc2, vc2, 1, pos)
+            got = decode_attention(q2, kn2, vn2, kc2, vc2, 1, _dev_pos(pos))
+            want = decode_attention_reference(q2, kn2, vn2, kc2, vc2, 1, _dev_pos(pos))
             torch.cuda.synchronize()
             err, scale = float((got - want).abs().max()), float(want.abs().max())
             print("decode attention vs plain", json.dumps(
@@ -895,9 +956,10 @@ def time_attention(cfg, ctx, card):
     out = {}
     for pos in ATTN_TIMED:
         set_prefix(kc, vc, rows, pos)
-        kernel = lambda: decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, pos)  # noqa: E731
+        p = _dev_pos(pos)
+        kernel = lambda: decode_attention(q, k_new, v_new, kc, vc, ATTN_LAYER, p)  # noqa: E731
         plain = lambda: decode_attention_reference(  # noqa: E731
-            q, k_new, v_new, kc, vc, ATTN_LAYER, pos)
+            q, k_new, v_new, kc, vc, ATTN_LAYER, p)
         qb = q.bfloat16()[None, :, None, :]
         kb = torch.cat([kc[ATTN_LAYER, :, :pos], k_new.bfloat16()[:, None]], dim=1)[None]
         vb = torch.cat([vc[ATTN_LAYER, :, :pos], v_new.bfloat16()[:, None]], dim=1)[None]
@@ -1105,8 +1167,8 @@ def code2wav_phase(eng, card: str, c2c=None) -> dict:
     del state
     meng = engine()
     assert not peng._vocoder_is_random
-    p_out, _ = serve(peng, synthesize=False, request0=300)
-    m_out, _ = serve(meng, synthesize=False, request0=300)
+    p_out, _ = serve(peng, TEXTS[:2], synthesize=False, request0=300)
+    m_out, _ = serve(meng, TEXTS[:2], synthesize=False, request0=300)
     same = all(np.array_equal(stack(a[3]), stack(b[3])) and all(
         np.array_equal(x, y) for (x, _), (y, _) in zip(a[3], b[3])) for a, b in zip(p_out, m_out))
     res["checkpoint"] = {
@@ -1128,11 +1190,11 @@ def code2wav_phase(eng, card: str, c2c=None) -> dict:
         e = engine(vocoder_dtype=dt, fused_chunks=False)
         serve(e, TEXTS[:1], synthesize=False, request0=190)         # warm
         m0, d0 = g.get_metrics(), g.decode_launches()
-        g_out, _ = serve(g, synthesize=False, request0=310)
+        g_out, _ = serve(g, TEXTS[:2], synthesize=False, request0=310)
         launches = g.decode_launches() - d0
         m1 = g.get_metrics()
         steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
-        e_out, _ = serve(e, synthesize=False, request0=310)
+        e_out, _ = serve(e, TEXTS[:2], synthesize=False, request0=310)
         r = {"requests": [], "decode_step_launches": launches, "decode_steps": steps}
         for a, b in zip(g_out, e_out):
             ga, ea = a[3], b[3]
@@ -1239,6 +1301,533 @@ def code2wav_phase(eng, card: str, c2c=None) -> dict:
           f"{json.dumps(res['chunk_ms'])} {card}")
     assert all(len(a) == n * hop for a in [g._frames_decode(chunk, ctx) for g in graphs.values()])
     del graphs, peng, g
+    return res
+
+
+def _attention_bound(cfg, B: int, pos: int):
+    """B3's least time for B slots at position `pos`: each slot's prefix K
+    and V rows (bf16) and its q, k_new, v_new and out (f32) moved once, the
+    f32 products on the CUDA cores (its operations' type) at 67 TFLOP/s."""
+    nbytes = B * (2 * cfg.num_kv_heads * pos * cfg.head_dim * 2
+                  + (2 * cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim * 4)
+    flops = B * 4 * cfg.num_q_heads * (pos + 1) * cfg.head_dim
+    return _bound_ms(nbytes, flops, F32_FLOP_PER_S)
+
+
+def device_position_attention(cfg, gen, card) -> dict:
+    """Phase 15's kernel half: B3 on device positions against its plain
+    version, one slot at ATTN_SLOT_POSITIONS and four slots at four
+    positions each, over full-shape caches [4, 28, 8, 8192, 128] whose rows
+    past each slot's position and whose other layers hold poison; then the
+    device and call time of one slot and of four at 300 / 4095 / 8191 beside
+    `scaled_dot_product_attention` on the same prefixes (bf16, its
+    `enable_gqa`), which the port never calls."""
+    import torch
+    import torch.nn.functional as F
+    from qwen_tts_tpu_torch.ops.attention import decode_attention, decode_attention_reference
+
+    L, KVH, S, D, HQ = (cfg.num_layers, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
+                        cfg.num_q_heads)
+    B = 4
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    q, kn, vn = rnd(B, HQ, D), rnd(B, KVH, D), rnd(B, KVH, D)
+    kc = torch.full((B, L, KVH, S, D), -77.0, dtype=torch.bfloat16, device="cuda")
+    vc = torch.full((B, L, KVH, S, D), 77.0, dtype=torch.bfloat16, device="cuda")
+    for c in (kc, vc):
+        c[:, ATTN_LAYER] = rnd(B, KVH, S, D).bfloat16()
+
+    def prefix(positions):
+        for b, p in enumerate(positions):
+            for c in (kc, vc):
+                c[b, ATTN_LAYER, :, p:] = 99.0
+
+    def refill():
+        for c in (kc, vc):
+            c[:, ATTN_LAYER] = rnd(B, KVH, S, D).bfloat16()
+
+    def check(label, got, again, want):
+        torch.cuda.synchronize()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        same = torch.equal(got, again)
+        ok = err <= 2e-3 * max(1.0, scale) and bool(torch.isfinite(got).all()) and same
+        print("decode attention on device positions vs plain", json.dumps(
+            {**label, "max_abs": err, "ref_max_abs": scale, "run_twice_bit_identical": same,
+             "ok": ok}))
+        assert ok, (label, err, scale)
+        return err
+
+    errs = {1: [], B: []}
+    for pos in ATTN_SLOT_POSITIONS:
+        refill()
+        prefix([pos] * B)
+        p = _dev_pos(pos)
+        args = (q[0], kn[0], vn[0], kc[0], vc[0], ATTN_LAYER, p)
+        errs[1].append(check({"slots": 1, "pos": pos}, decode_attention(*args),
+                             decode_attention(*args), decode_attention_reference(*args)))
+    for group in ((0, 1, 63, 64), (300, 4095, 8191, S), (S, 65, 1025, 0)):
+        refill()
+        prefix(group)
+        args = (q, kn, vn, kc, vc, ATTN_LAYER, _dev_pos(*group))
+        errs[B].append(check({"slots": B, "pos": list(group)}, decode_attention(*args),
+                             decode_attention(*args), decode_attention_reference(*args)))
+
+    timed = {}
+    for pos in ATTN_TIMED:
+        refill()
+        prefix([pos] * B)
+        for n in (1, B):
+            args = ((q[0], kn[0], vn[0], kc[0], vc[0], ATTN_LAYER, _dev_pos(pos)) if n == 1
+                    else (q, kn, vn, kc, vc, ATTN_LAYER, _dev_pos(*[pos] * B)))
+            kernel = lambda a=args: decode_attention(*a)  # noqa: E731
+            plain = lambda a=args: decode_attention_reference(*a)  # noqa: E731
+            qb = q[:n].bfloat16()[:, :, None, :]
+            kb = torch.cat([kc[:n, ATTN_LAYER, :, :pos], kn[:n].bfloat16()[:, :, None]], dim=2)
+            vb = torch.cat([vc[:n, ATTN_LAYER, :, :pos], vn[:n].bfloat16()[:, :, None]], dim=2)
+            lib = lambda: F.scaled_dot_product_attention(qb, kb, vb, enable_gqa=True)  # noqa: E731
+            k_call, p_call = _interleaved(kernel, plain, 200, 20)
+            l_call = min(_time_ms(lib, 200), _time_ms(lib, 200))
+            k_ms, p_ms, l_ms = _device_ms(kernel, 100), _device_ms(plain, 10), _device_ms(lib, 100)
+            b_ms, b_by = _attention_bound(cfg, n, pos)
+            timed[(n, pos)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                               "bound_ms": b_ms, "bound_by": b_by, "call_ms": k_call,
+                               "plain_call_ms": p_call, "library_call_ms": l_call}
+            print(f"decode attention on device positions, {n} slot(s) at {pos} (layer of "
+                  f"[28,8,8192,128] each), device ms per call: kernel {k_ms:.5f}, plain "
+                  f"{p_ms:.5f}, scaled_dot_product_attention {l_ms:.5f}, bound {b_ms:.5f} "
+                  f"({b_by}); back-to-back call ms: kernel {k_call:.5f}, plain {p_call:.5f}, "
+                  f"sdpa {l_call:.5f} {card}")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max(errs[1]), "max_abs_err_slots": max(errs[B]), "times": timed}
+
+
+def cache_end_step(eng, card) -> dict:
+    """A talker step (phase 3's weights, full width and depth, caches cut to
+    64 rows) of two slots on device positions, one at 64 (its cache full)
+    and one at 3, on "pallas" and "dense": finite; the full slot writes its
+    column in its own last rows only (the write clamps its position, as the
+    kernel does); the other slot's output and rows are those it has beside
+    a neighbour at 3."""
+    import dataclasses
+
+    import torch
+
+    from qwen_tts_tpu_torch.models import decoder as td
+
+    cfg = dataclasses.replace(eng.model_config.talker, max_seq_len=64)
+    S, w = cfg.max_seq_len, eng.weights.talker
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    x = torch.randn((2, 1, cfg.hidden_size), generator=gen, device="cuda")
+    fill = torch.randn(td.init_state(cfg, "cuda", slots=2).k_cache.shape, generator=gen,
+                       device="cuda").mul_(0.1).bfloat16()
+    out = {}
+    for impl in ("pallas", "dense"):
+        runs = []
+        for first in (S, 3):
+            st = td.init_state(cfg, "cuda", slots=2)
+            st.k_cache.copy_(fill)
+            st.v_cache.copy_(fill)
+            st.pos.copy_(torch.tensor([first, 3], dtype=torch.int32, device="cuda"))
+            st, normed = td.forward_chunk(cfg, w, st, x, attn_impl=impl)
+            runs.append((st, normed))
+        torch.cuda.synchronize()
+        (st, normed), (st3, normed3) = runs
+        changed = (st.k_cache[0] != fill[0]).any(-1)
+        res = {"finite": bool(torch.isfinite(normed).all()),
+               "neighbour_same": bool(torch.equal(normed[1], normed3[1])
+                                      and torch.equal(st.k_cache[1], st3.k_cache[1])),
+               "own_last_rows_only": bool(not changed[:, :, :S - 1].any()
+                                          and changed[:, :, S - 1].all()),
+               "positions": st.pos.tolist()}
+        print(f"[{impl}] a talker step of a slot at its cache's end ({S} rows) beside one at "
+              f"3: {json.dumps(res)} {card}")
+        assert res["finite"] and res["neighbour_same"] and res["own_last_rows_only"] \
+            and res["positions"] == [S + 1, 4], res
+        out[impl] = res
+    return out
+
+
+def backend_graphs_phase(eng, card) -> dict:
+    """Phase 15's engine half: backends "pallas" and "dense" with
+    `fused_chunks=True` (graphs captured in `initialize()`) against their
+    eager loops on phase 3's weights, phase 13's first request streamed and
+    synthesized: codes equal bit for bit, audio within 1e-4 * max(1, max
+    |eager|); the decode-attention kernel's own launch count on the graph
+    path equal to talker layers x talker steps + code-predictor layers x
+    code-predictor steps ("pallas"; 0 on "dense"), and no decode-step
+    kernel; TTFC and RTF medians of both paths."""
+    import numpy as np
+    import torch
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+    from qwen_tts_tpu_torch.ops import attention, decode_step
+
+    mc, out = eng.model_config, {}
+    texts = TEXTS[:1]      # the eager loops run at RTF ~2: the shortest request
+    for backend in ("pallas", "dense"):
+        g, e = (TTSEngine(TTSConfig(backend=backend, fused_chunks=f)) for f in (True, False))
+        for x in (g, e):
+            x.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
+        serve(g, ("Hi.",), synthesize=False, request0=190)              # warm
+        assert len(g._graphs.graphs) >= 1 + RING_GRAPHS and g._talker.pos is not None
+        torch.cuda.synchronize()
+        _reset_launches()
+        m0 = g.get_metrics()
+        g_out, g_syn = serve(g, texts, synthesize_text=texts[0])
+        torch.cuda.synchronize()
+        launches = attention.device_launches(g.device)
+        m1 = g.get_metrics()
+        t_steps, c_steps = (m1["talker_steps"] - m0["talker_steps"],
+                            m1["cp_steps"] - m0["cp_steps"])
+        want = (mc.talker.num_layers * t_steps + mc.code_predictor.num_layers * c_steps
+                if backend == "pallas" else 0)
+        e_out, e_syn = serve(e, texts, synthesize_text=texts[0])
+        stack = lambda chunks: np.stack([f for _a, fr in chunks for f in fr])  # noqa: E731
+        reqs = [{"codes_equal": [len(fr) for _a, fr in gc] == [len(fr) for _a, fr in ec]
+                 and bool(np.array_equal(stack(gc), stack(ec))),
+                 "audio_max_abs_diff": max(float(np.abs(a - b).max())
+                                           for (a, _), (b, _) in zip(gc, ec)),
+                 "bar": 1e-4 * max(1.0, max(float(np.abs(b).max()) for b, _ in ec))}
+                for (_t, _w, _s, gc), (_t2, _w2, _s2, ec) in zip(g_out, e_out)]
+        (gw, gf), (ew, ef) = g_syn, e_syn
+        reqs.append({"codes_equal": len(gf) == len(ef) and bool(
+            np.array_equal(np.stack(gf), np.stack(ef))),
+            "audio_max_abs_diff": float(np.abs(gw - ew).max()),
+            "bar": 1e-4 * max(1.0, float(np.abs(ew).max()))})
+        med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+        res = {"requests": reqs, "decode_attention_launches": launches,
+               "want_launches": want, "talker_steps": t_steps, "cp_steps": c_steps,
+               "decode_step_wrapper_launches": decode_step.megakernel_forward.launches,
+               "graph_ttfc_ms": med([r[0] for r in g_out]),
+               "eager_ttfc_ms": med([r[0] for r in e_out]),
+               "graph_rtf": sum(r[1] for r in g_out) / sum(r[2] for r in g_out),
+               "eager_rtf": sum(r[1] for r in e_out) / sum(r[2] for r in e_out)}
+        print(f"backend {backend} [CUDA graphs against the eager loop]: {json.dumps(res)} "
+              f"{card}")
+        assert all(r["codes_equal"] and r["audio_max_abs_diff"] <= r["bar"] for r in reqs), res
+        assert launches == want and (want > 0) == (backend == "pallas"), res
+        assert decode_step.megakernel_forward.launches == 0, res
+        out[backend] = res
+        del g, e
+        torch.cuda.empty_cache()
+    return out
+
+
+def _staggered(batcher, texts, gap_s: float):
+    """Submit `texts` to the batcher `gap_s` apart; per request (submit
+    time, first audio time, end time, audio), all on the host clock, and
+    the wall from the first submit to the last end."""
+    import numpy as np
+
+    async def one(i, text, t0):
+        await asyncio.sleep(i * gap_s)
+        sub, first, parts = time.perf_counter(), None, []
+        async for audio, _sr in batcher.submit(text):
+            first = first or time.perf_counter()
+            parts.append(audio)
+        return sub - t0, first - t0, time.perf_counter() - t0, np.concatenate(parts)
+
+    async def run():
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*[one(i, t, t0) for i, t in enumerate(texts)])
+        return res, time.perf_counter() - t0
+
+    return asyncio.run(run())
+
+
+def _tie_gaps(a: int, b: int, logits, noise=None, temperature: float = 0.9) -> dict:
+    """How near a tie two codes a and b of one choice were. "logit": |logit[a]
+    - logit[b]| (greedy: which wins; sampled: two codes this close swap
+    top-k ranks, and so the noise each meets). Sampled (`noise`, the
+    choice's Gumbel draws over the top-k ranks): "score", the gap between
+    the two codes' noisy scores, logit / temperature + the noise at its
+    rank, which the sampler's argmax compares (inf if either is not in the
+    top k)."""
+    import torch
+
+    gaps = {"logit": abs(float(logits[a] - logits[b]))}
+    if noise is not None:
+        vals, idxs = torch.topk(logits / temperature, noise.shape[-1])
+        score = {int(i): float(v + n) for i, v, n in zip(idxs, vals, noise)}
+        gaps["score"] = abs(score[a] - score[b]) if a in score and b in score else math.inf
+    return gaps
+
+
+def _rank_swap_gap(a: int, b: int, batch_logits, other_logits, k: int) -> dict:
+    """Sampled choices of codes a (another run) and b (the batch) from two
+    runs' logits: the sampler adds the noise of each top-k rank to the code
+    at that rank, so rounding parts the runs when it swaps two codes'
+    ranks. "min_adjacent": the smallest gap between adjacent top-k logits
+    of the batch; "rank_swap": for a or b at a rank that holds another code
+    in the other run, the smallest gap in the batch's logits between it and
+    that code (inf if neither code's rank moved)."""
+    import torch
+
+    ob = torch.topk(batch_logits, k).indices.tolist()
+    oo = torch.topk(other_logits, k).indices.tolist()
+    vals = torch.topk(batch_logits, k).values
+    gaps = {"min_adjacent": float((vals[:-1] - vals[1:]).min()), "rank_swap": math.inf}
+    for c in (a, b):
+        for mine, theirs in ((ob, oo), (oo, ob)):
+            if c in mine and theirs[mine.index(c)] != c:
+                other = theirs[mine.index(c)]
+                gap = abs(float(batch_logits[c] - batch_logits[other]))
+                gaps["rank_swap"] = min(gaps["rank_swap"], gap)
+    return gaps
+
+
+def _profiled(fn):
+    """(device busy µs, cudaGraphLaunch calls, wall s) of `fn()` under
+    `torch.profiler`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us, graph_launches = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and e.self_device_time_total > 0:
+            busy_us += e.self_device_time_total
+        elif e.key == "cudaGraphLaunch":
+            graph_launches += e.count
+    return busy_us, graph_launches, wall
+
+
+def serving_phase(eng3, card) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+    from qwen_tts_tpu_torch.ops import attention
+    from qwen_tts_tpu_torch.runtime import frame_loop
+    from qwen_tts_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    texts = [TEXTS[i % len(TEXTS)] for i in range(SERVE_REQUESTS)]
+    out = {}
+    for label, kw in (("bf16", {}), ("int8+kv8", {"quantize": "int8", "kv_cache": "int8"})):
+        # the batcher captures its own graphs: none of the engine's
+        eng = TTSEngine(TTSConfig(max_seq_len=SERVE_SEQ, warmup=False, **kw))
+        eng.initialize(weights=eng3.weights, vocoder_weights=eng3.vocoder_weights)
+        b = ContinuousBatcher(eng, slots=SERVE_SLOTS, chunk_frames=10, admit_chunk_frames=2)
+        t0 = time.perf_counter()
+        b.warm()
+        warm_s = time.perf_counter() - t0
+        graphs, captures = set(b._g.graphs), b.captures
+        b.serve([TEXTS[0]])                               # warm: the host-side set-up
+        reqs, frames = [], [0]
+        real_admit, real_dispatch = b._admit, b._dispatch
+        b._admit = lambda r, s: (reqs.append(r), real_admit(r, s))[1]
+        b._dispatch = lambda n: (frames.__setitem__(0, frames[0] + n), real_dispatch(n))[1]
+        torch.cuda.synchronize()
+        attention.reset_device_launches(eng.device)
+        spans, real_replay = [], b._g.replay
+
+        def timed_replay(key, body):      # events around each replay, on its stream
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record(b._g.stream)
+            real_replay(key, body)
+            ev[1].record(b._g.stream)
+            spans.append(ev)
+
+        b._g.replay = timed_replay
+        t0 = time.perf_counter()
+        results, wall = _staggered(b, texts, SERVE_GAP_S)
+        torch.cuda.synchronize()       # the chunk dispatched past the last end, too
+        busy_wall = time.perf_counter() - t0
+        del b._g.replay
+        launches = attention.device_launches(eng.device)
+        graph_ms = sum(s0.elapsed_time(s1) for s0, s1 in spans)
+        hop = eng.vocoder_config.hop_length
+        for _s, _f, _e, audio in results:
+            assert len(audio) > 0 and len(audio) % hop == 0 and np.isfinite(audio).all()
+        kv8 = eng._kv_dtype == torch.int8
+        lt, lc = eng.model_config.talker.num_layers, eng.model_config.code_predictor.num_layers
+        want = frames[0] * ((0 if kv8 else lt) + 14 * lc) + (0 if kv8 else lt) * len(reqs)
+        first_ms = sorted((f - s) * 1e3 for s, f, _e, _a in results)
+        audio_s = sum(len(a) for *_x, a in results) / eng.sample_rate
+        pct = lambda xs, q: xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]  # noqa: E731
+        res = {"requests": len(results), "slots": SERVE_SLOTS, "max_seq_len": SERVE_SEQ,
+               "warm_s": warm_s, "graphs": len(graphs), "audio_s": audio_s, "wall_s": wall,
+               "aggregate_rt_x": audio_s / wall, "first_audio_p50_ms": pct(first_ms, 0.5),
+               "first_audio_p95_ms": pct(first_ms, 0.95), "frames_dispatched": frames[0],
+               "admissions": len(reqs), "decode_attention_launches": launches,
+               "device_busy_share": graph_ms / 1e3 / busy_wall,
+               "want_launches": want,
+               "closed_graph_set": set(b._g.graphs) == graphs and b.captures == captures}
+        assert res["closed_graph_set"] and launches == want, res
+        # one request alone under the profiler: the CUDA calls of a chunk and
+        # an admission (a whole staggered run is millions of kernel events)
+        r0, q0, a0 = b._g.replays, b._seq, len(reqs)
+        busy_us, graph_launches, pwall = _profiled(lambda: b.serve([TEXTS[0]]))
+        chunks, admissions = b._seq - q0, len(reqs) - a0
+        res.update(profiled_busy_share=busy_us / 1e6 / pwall, profiled_wall_s=pwall,
+                   chunks=chunks, profiled_admissions=admissions,
+                   graph_launches=graph_launches,
+                   graph_launches_per_chunk=(graph_launches - admissions) / chunks,
+                   replays=b._g.replays - r0)
+        assert graph_launches == chunks + admissions == res["replays"], res
+        # a request alone through the batcher: the codes it had in the crowd
+        r = reqs[2]
+        eng._requests = r.number - 1
+        b.serve([r.text])
+        alone = reqs[-1]
+        a_codes, s_codes = np.concatenate(alone.codes), np.concatenate(r.codes)
+        res["alone_codes_equal"] = bool(np.array_equal(a_codes, s_codes))
+        assert res["alone_codes_equal"], (a_codes.shape, s_codes.shape)
+        b._admit, b._dispatch = real_admit, real_dispatch
+        print(f"serving [{label}] {SERVE_REQUESTS} requests {SERVE_GAP_S * 1e3:.0f} ms apart on "
+              f"{SERVE_SLOTS} slots: {json.dumps(res)} {card}")
+        print(f"serving [{label}]: aggregate real-time x {res['aggregate_rt_x']:.3f} {card}")
+        print(f"serving [{label}]: first audio p50 {res['first_audio_p50_ms']:.2f} ms, p95 "
+              f"{res['first_audio_p95_ms']:.2f} ms {card}")
+        print(f"serving [{label}]: device busy share {res['device_busy_share']:.4f} {card}")
+        print(f"serving [{label}]: graph launches per chunk "
+              f"{res['graph_launches_per_chunk']:.3f} ({graph_launches} for {chunks} chunks "
+              f"and {admissions} admissions, one graph each) {card}")
+        if not kw:
+            res["synthesize_batch"] = batch_against_singles(eng, frame_loop, card)
+        out[label] = res
+        del b, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+BATCH_TEXTS = ("Hello from the GPU.", "One more short line.", "Batched speech.",
+               "Four texts at once here.")
+
+
+def batch_against_singles(eng, frame_loop, card) -> dict:
+    """`synthesize_batch` of four short texts against each text run alone
+    with its request number, twice. Padded to the same four slots (three
+    copies of it beside it), where a request's codes depend on its number,
+    not on its slot or its neighbours: codes equal, or else first parting
+    at a near tie of the batch's logits (`_tie_gaps` < 2e-2). On one slot,
+    where the products round otherwise, fed the batch's codes (each frame's
+    code predictor and each talker step return the batch's choices), so
+    the two runs see the same inputs all the way: the talker's hidden state
+    at every step within cosine 0.999 of the batch's (the bar at which
+    `tests/test_batch.py` holds JAX's batch to its sequential path), and at
+    the first choice the slot would have made otherwise, a near tie where
+    rounding can reorder: a greedy code 0 within 2e-2, or a sampled code
+    whose top-k logits hold two adjacent ones within 2e-2 (their ranks, and
+    so the noise each meets, swap; `_rank_swap_gap`)."""
+    import numpy as np
+    import torch
+    from qwen_tts_tpu_torch.models.decoder import lm_head_logits
+    from qwen_tts_tpu_torch.ops.sampling import gumbel_from_uniform
+
+    def cosine(a, b) -> float:
+        a, b = a.double().flatten(), b.double().flatten()
+        return float((a @ b) / (a.norm() * b.norm()))
+
+    texts = list(BATCH_TEXTS)
+    n0 = eng._requests
+    real_cp, real_step = frame_loop.cp_predict, frame_loop.decode_step_with_embed
+    cp, talker, force = [], [], {}     # per call: (codes, logits); (token, logits, normed)
+
+    def cp_predict(*a, **k):
+        codes, logits = real_cp(*a, **{**k, "return_logits": True})
+        cp.append((codes, logits))
+        forced = force.get("cp", [])
+        return forced[len(cp) - 1] if len(cp) <= len(forced) else codes
+
+    def decode_step_with_embed(cfg, w, *a, **k):
+        state, token, normed = real_step(cfg, w, *a, **k)
+        talker.append((token, lm_head_logits(w, normed[None])[0], normed))
+        forced = force.get("tok", [])
+        return state, (forced[len(talker) - 1] if len(talker) <= len(forced) else token), normed
+
+    seen, real = [], eng._decode_to_audio
+    eng._decode_to_audio = lambda frames: (seen.append(np.stack(frames)), real(frames))[1]
+    frame_loop.cp_predict, frame_loop.decode_step_with_embed = cp_predict, decode_step_with_embed
+    try:
+        t0 = time.perf_counter()
+        results = eng.synthesize_batch(texts)
+        batch_s = time.perf_counter() - t0
+        batch_seen, seen[:] = list(seen), []
+        b_cp, b_talker = list(cp), list(talker)
+        padded, one_slot = [], []
+        for i, text in enumerate(texts):
+            eng._requests = n0 + i
+            eng.synthesize_batch([text] * len(texts))
+            padded.append(seen[0])
+            force.update(cp=[c[i:i + 1] for c, _l in b_cp], tok=[t[i:i + 1] for t, *_x in b_talker])
+            cp.clear()
+            talker.clear()
+            eng._requests = n0 + i
+            eng.synthesize_batch([text])
+            one_slot.append((list(cp), list(talker)))
+            force.clear()
+            cp.clear()
+            talker.clear()
+            seen.clear()
+    finally:
+        frame_loop.cp_predict, frame_loop.decode_step_with_embed = real_cp, real_step
+        del eng._decode_to_audio
+    res = {"texts": len(texts), "batch_s": batch_s, "padded": [], "one_slot": []}
+    for i in range(len(texts)):
+        wav, _sr = results[i]
+        assert len(wav) > 0 and np.isfinite(wav).all()
+        got = batch_seen[i]
+        one = padded[i]
+        n = min(len(one), len(got))
+        diff = np.argwhere(one[:n] != got[:n])
+        entry = {"frames_batch": len(got), "frames_alone": len(one),
+                 "codes_equal": not len(diff) and len(one) == len(got)}
+        if len(diff):
+            f, g = (int(x) for x in diff[0])
+            logits = b_talker[f][1][i] if g == 0 else b_cp[f][1][i, g - 1]
+            noise = None
+            if g > 0:     # the draws of text i's request number, frame f, group g
+                noise = gumbel_from_uniform(eng._draw(n0 + i + 1, f, 1)[0, g - 1]).cpu()
+            gaps = _tie_gaps(int(one[f, g]), int(got[f, g]), logits.cpu(), noise)
+            entry.update(first_diff_frame_group=[f, g], tie_gaps=gaps)
+            entry["near_tie"] = min(gaps.values()) < 2e-2
+        res["padded"].append(entry)
+        assert entry["codes_equal"] or entry["near_tie"], ("padded", entry, res)
+
+        # one slot, fed the batch's codes: its own choices and hidden states
+        o_cp, o_talker = one_slot[i]
+        steps = min(len(o_talker), len(b_talker))
+        cos = [cosine(o_talker[s][2][0], b_talker[s][2][i]) for s in range(steps)]
+        entry = {"frames_batch": len(got), "steps_compared": steps,
+                 "hidden_cos_min": min(cos), "own_choices_equal": True}
+        part = None
+        for f in range(min(len(got), len(o_cp))):
+            if int(o_talker[f][0][0]) != int(b_talker[f][0][i]):
+                part = (f, 0)
+                break
+            own, want = o_cp[f][0][0].tolist(), b_cp[f][0][i].tolist()
+            if own != want:
+                part = (f, next(g for g in range(1, 16) if own[g] != want[g]))
+                break
+        if part is not None:
+            f, g = part
+            entry["own_choices_equal"] = False
+            if g == 0:
+                a, b = int(o_talker[f][0][0]), int(b_talker[f][0][i])
+                lb, lo = b_talker[f][1][i].cpu(), o_talker[f][1][0].cpu()
+                gaps = _tie_gaps(a, b, lb)
+                rule = gaps["logit"]
+            else:
+                a, b = int(o_cp[f][0][0, g]), int(b_cp[f][0][i, g])
+                lb, lo = b_cp[f][1][i, g - 1].cpu(), o_cp[f][1][0, g - 1].cpu()
+                noise = gumbel_from_uniform(eng._draw(n0 + i + 1, f, 1)[0, g - 1]).cpu()
+                gaps = {**_tie_gaps(a, b, lb, noise), **_rank_swap_gap(a, b, lb, lo,
+                                                                       noise.shape[-1])}
+                rule = gaps["min_adjacent"]
+            top = torch.topk(lb, eng._top_k).indices
+            entry.update(first_parting_frame_group=[f, g], tie_gaps=gaps,
+                         logit_drift_topk=float((lb[top] - lo[top]).abs().max()))
+            entry["near_tie"] = rule < 2e-2
+        res["one_slot"].append(entry)
+        assert entry["hidden_cos_min"] > 0.999 and (part is None or entry["near_tie"]), \
+            ("one slot", entry, res)
+    print(f"synthesize_batch of {len(texts)} texts against each alone, padded to four slots "
+          f"by copies of it and on one slot fed the batch's codes: {json.dumps(res)} {card}")
     return res
 
 
@@ -1396,7 +1985,7 @@ def main() -> int:
     _reset_launches()
     m0 = peng.get_metrics()
     ttfc, wall, chunks = stream(peng, TEXTS[0])
-    launches["decode_attention"] = attention.decode_attention.launches
+    launches["decode_attention"] = attention.device_launches(peng.device)
     m1 = peng.get_metrics()
     audio = check_stream(peng, chunks)
     t_steps, c_steps = (m1["talker_steps"] - m0["talker_steps"],
@@ -1548,8 +2137,23 @@ def main() -> int:
     c2w_res = code2wav_phase(eng, card)
 
     _phase_done(14)
+
+    # ── phase 15: "pallas" and "dense" in CUDA graphs; B3 on device positions ──
+    slot_attn = device_position_attention(mc.talker, gen, card)
+    cache_end_step(eng, card)
+    backends = backend_graphs_phase(eng, card)
+    launches["decode_attention_graphs"] = backends["pallas"]["decode_attention_launches"]
+
+    _phase_done(15)
+
+    # ── phase 16: continuous batching and synthesize_batch at full width ──
+    serving = serving_phase(eng, card)
+    launches["decode_attention_slots"] = serving["bf16"]["decode_attention_launches"]
+
+    _phase_done(16)
     assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
-                                                 *gerr.values()])
+                                                 *gerr.values(), slot_attn["max_abs_err"],
+                                                 slot_attn["max_abs_err_slots"]])
     a300 = attn_t[300]
     print(json.dumps({"kernels": [
         {"name": "decode_step", "route": "cuda",
@@ -1570,7 +2174,17 @@ def main() -> int:
          "ms": a300["ms"], "plain_ms": a300["plain_ms"], "bound_ms": a300["bound_ms"],
          "bound_by": a300["bound_by"], "library_ms": a300["library_ms"],
          "call_ms": a300["call_ms"],
-         "by_position": {str(p): v for p, v in attn_t.items()}},
+         "by_position": {str(p): v for p, v in attn_t.items()},
+         "graph_path_launches": {b: r["decode_attention_launches"]
+                                 for b, r in backends.items()}},
+        {"name": "decode_attention[device positions, 4 slots]", "route": "cuda",
+         "source": "qwen_tts_tpu_torch/csrc/attention.cu",
+         "replaces": "qwen_tts_tpu/ops/attention.py:29",
+         "launches": launches["decode_attention_slots"],
+         "max_abs_err": max(slot_attn["max_abs_err"], slot_attn["max_abs_err_slots"]),
+         **slot_attn["times"][(4, 300)],
+         "by_slots_and_position": {f"{n}x{p}": v for (n, p), v in slot_attn["times"].items()},
+         "serving": serving},
         {"name": "generate", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/generate.cu",
          "replaces": "qwen_tts_tpu/ops/generate_kernel.py:52",

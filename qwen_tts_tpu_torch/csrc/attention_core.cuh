@@ -27,13 +27,17 @@
 // Design, for a card of 132 SMs:
 //  - Fill the card: the prefix is cut into 64-row tiles, and a kv head's
 //    tiles into contiguous ranges, one per block of a thread-block cluster
-//    of nb blocks, one cluster per kv head (grid KVH x nb, cluster nb). nb
-//    grows with the prefix, one block per tile up to kAttnMaxBlocks (16:
-//    8 x 16 = 128 blocks on 132 SMs; a cluster above 8 blocks is
-//    non-portable and is allowed on the kernel; 16 beat 8 from position
-//    ~8191 and tied below). Up to 64 rows (the code predictor's whole
-//    range) a kv head is one block, as before, launched without the
-//    cluster attribute (an implicit cluster of one).
+//    of nb blocks, one cluster per kv head (grid KVH x nb, cluster nb; the
+//    standalone kernel: one per slot and kv head). In the standalone kernel
+//    nb is fixed by the cache's length, one block per tile of it up to
+//    kAttnMaxBlocks (16: 8 x 16 = 128 blocks on 132 SMs; a cluster above 8
+//    blocks is non-portable and is allowed on the kernel; 16 beat 8 from
+//    position ~8191 and tied below), and each block reads the position
+//    from device memory and takes its share of the prefix's tiles (ranks
+//    past the prefix take none); in the decode step nb follows the
+//    position. A cache of up to 64 rows (the code predictor's) is one
+//    block a kv head, launched without the cluster attribute (an implicit
+//    cluster of one).
 //  - Keep bytes in flight: one thread streams the block's tiles through a
 //    ring of kAttnStages shared-memory stages with TMA bulk copies (a
 //    tile's K rows and V rows are two contiguous ranges, so two copies, plus
@@ -652,15 +656,22 @@ __device__ bool attend_cluster(AttnShared& sh, char* stages, const CacheT* __res
   return rank == 0;
 }
 
-// Blocks per kv head at this prefix length, and the 64-row tiles each takes
-// (*tpb; 0 when the prefix is empty).
-int attn_blocks_per_head(int pos, int* tpb) {
+// Blocks a kv head gets in a launch over a cache of S rows: one per 64-row
+// tile of S, at most kAttnMaxBlocks. It depends on the cache's length, not
+// on a position, so a launch's grid is the same at every step.
+int attn_blocks_for_cache(int S) {
+  const int nt = (S + kAttnTile - 1) / kAttnTile;
+  return nt < 1 ? 1 : (nt < kAttnMaxBlocks ? nt : kAttnMaxBlocks);
+}
+
+// The 64-row tiles each of a kv head's nb blocks takes at a prefix of pos
+// rows (0 when the prefix is empty): as few blocks as take the tiles evenly,
+// the ranks past them take none and leave an empty partial (m = -inf,
+// l = 0) to the merge.
+__device__ __forceinline__ int attn_tiles_per_block(int pos, int nb) {
   const int nt = (pos + kAttnTile - 1) / kAttnTile;
-  int nb = nt < 1 ? 1 : (nt < kAttnMaxBlocks ? nt : kAttnMaxBlocks);
-  const int t = nt > 0 ? (nt + nb - 1) / nb : 0;
-  if (t > 0) nb = (nt + t - 1) / t;
-  *tpb = t;
-  return nb;
+  const int used = nt < nb ? nt : nb;
+  return nt > 0 ? (nt + used - 1) / used : 0;
 }
 
 // Shared-memory and cluster attributes of an attention kernel; call once.

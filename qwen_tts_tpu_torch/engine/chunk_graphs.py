@@ -19,6 +19,7 @@ the order of the work are the same.
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, NamedTuple, Sequence
 
 import torch
@@ -76,13 +77,23 @@ class ChunkGraphs:
         libraries it calls are set up. The arrays of `carried` caches are
         not filled in the graph (the graph before it leaves them set); every
         other array the body uses is filled once, at the positions it asks
-        for at capture. A capture that fails raises."""
+        for at capture. The garbage collector is off while it captures: a
+        dropped object holding graphs (another engine's, in a reference
+        cycle) would destroy them mid-capture, which invalidates it. A
+        capture that fails raises."""
         graph = torch.cuda.CUDAGraph()
         self.owned.forget()
         self.owned.frozen = True
-        with self.owned.active(carried=carried):
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                body()
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with self.owned.active(carried=carried):
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                    body()
+        finally:
+            if collecting:
+                gc.enable()
         self.owned.forget()
         self.graphs[key] = graph
 

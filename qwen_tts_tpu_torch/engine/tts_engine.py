@@ -53,8 +53,18 @@ that fails raises; nothing falls back to the eager loop. On the CPU the
 same bodies run eagerly, in the same order. `fused_chunks=False` is the
 eager loop: each chunk's ops enqueued from Python and read back before the
 next chunk starts, the last chunk cut at the cap, its audio what the fused
-path yields. Backends "pallas" and "dense" keep host positions in their
-ops' arguments, so on a GPU they run with `fused_chunks=False` only.
+path yields. Every backend runs on both paths: "mega" keeps the talker's
+position in the decode kernel's own array, "pallas" and "dense" in the
+talker state's device position (`models/decoder.py`), which their
+single-token steps read and advance, so a replayed graph runs where the
+last one left.
+
+`synthesize_batch(texts)` runs B texts as one batch (`runtime/batch.py`,
+JAX `synthesize_batch` without the mesh): one batched prefill and one
+batched run of frames up to the longest cap, each row of every product a
+text's own, the attention the decode-attention kernel on a GPU with a
+bf16 cache (backend "dense": its plain version). `runtime/continuous.py`
+serves staggered requests in fixed slots on CUDA graphs of its own.
 
 The talker uses the interleaved M-RoPE of the released model
 (`mrope_section`, all section positions equal to the cache position for
@@ -200,15 +210,6 @@ def _quant_mode(cfg: TTSConfig):
     return mode
 
 
-def _unsupported(cfg: TTSConfig) -> str | None:
-    if (cfg.fused_chunks and cfg.backend in ("pallas", "dense")
-            and torch.device(cfg.device).type == "cuda"):
-        return (f"fused_chunks=True with backend={cfg.backend!r} on CUDA: its ops take host "
-                f"positions, which a CUDA graph would replay stale (ROADMAP A17); pass "
-                f"fused_chunks=False")
-    return None
-
-
 class _Stream:
     """One fused request's hold on the graphs' static state: the chunks it
     enqueued and has not read, and while another request holds the state,
@@ -228,9 +229,6 @@ class TTSEngine:
                  model_config: Optional[TTSModelConfig] = None):
         self.config = cfg = config or TTSConfig()
         self._quant_mode = _quant_mode(cfg)
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
         self._kv_dtype = torch.int8 if cfg.kv_cache == "int8" else torch.bfloat16
         mc = model_config or TTSModelConfig()
         talker = dataclasses.replace(mc.talker, max_seq_len=cfg.max_seq_len)
@@ -290,6 +288,9 @@ class TTSEngine:
             self._attn_impl = "mega" if dev.type == "cuda" else "dense"
         else:
             self._attn_impl = cfg.backend
+        # the batched path's attention: the kernel (its plain version on the
+        # CPU), or the plain version on backend "dense"
+        self._batch_impl = "dense" if cfg.backend == "dense" else "pallas"
         secs = mc.talker.mrope_section
         self._mrope_deltas = None if secs is None else [0] * len(secs)
 
@@ -305,7 +306,7 @@ class TTSEngine:
         self._fused_tags = (tts_prefix + codec_embeds[:4]).to(torch.bfloat16)
         self._codec_bos_embed = codec_embeds[4]
 
-        if self._attn_impl in ("mega", "pallas") and dev.type == "cuda":
+        if dev.type == "cuda":
             from ..ops.cuda_lib import load_library
 
             load_library()
@@ -403,6 +404,63 @@ class TTSEngine:
             yield audio, self.sample_rate
             await asyncio.sleep(0)
 
+    def synthesize_batch(self, texts: list[str]) -> list[tuple[np.ndarray, int]]:
+        """Batched non-streaming synthesis (JAX `synthesize_batch` :738-809,
+        without its `mesh`): the B texts' prefixes as one batched prefill,
+        then one batched run of frames up to the longest text's cap
+        (`runtime/batch.py`); each text keeps its frames up to its EOS or
+        cap, decoded as `synthesize` decodes them. Text b takes the next
+        request number, which keys its sampling noise: its codes depend on
+        that number, not on the other texts or its row (they equal the same
+        text's in any batch of B rows, bit for bit; a batch of another size
+        rounds its products otherwise)."""
+        self.initialize()
+        if not texts:
+            return []
+        from ..runtime.batch import batched_frames, batched_prefill
+
+        mc, cfg, dev = self.model_config, self.config, self.device
+        reqs = [self._new_request(t) for t in texts]
+        B, Tpad, n = len(texts), max(r[1] for r in reqs), max(r[2] for r in reqs)
+        if PREFIX_ROWS + 1 + n > cfg.max_seq_len:
+            raise ValueError(f"positions [0, {PREFIX_ROWS + 1 + n}) exceed max_seq_len "
+                             f"{cfg.max_seq_len}")
+        ids = np.zeros((B, Tpad + 1), dtype=np.int64)
+        for b, (content, _, _, _) in enumerate(reqs):
+            ids[b, :len(content)], ids[b, Tpad] = content, len(content)
+        ids = torch.from_numpy(ids).to(dev)
+        trailing = torch.empty((B, Tpad, mc.talker.hidden_size), dtype=torch.bfloat16,
+                               device=dev)
+        t_len = torch.empty(B, dtype=torch.int32, device=dev)
+        prefill = torch.stack([self._prefix(ids[b, :Tpad], ids[b, Tpad], trailing[b], t_len[b])
+                               for b in range(B)])
+        state, tok, hid = batched_prefill(mc.talker, self.weights.talker, prefill,
+                                          attn_impl=self._batch_impl, kv_dtype=self._kv_dtype,
+                                          mrope_deltas=self._mrope_deltas)
+        uniform = None
+        if cfg.subtalker_do_sample:
+            uniform = torch.empty((B, n, mc.num_code_groups - 1, self._top_k),
+                                  dtype=torch.float32, device=dev)
+            for b, r in enumerate(reqs):
+                self._draw(r[3], 0, n, uniform[b])
+        _, codes, valid, _, _ = batched_frames(
+            mc.talker, mc.code_predictor, self.weights.talker, self.weights.code_predictor,
+            state, tok, hid, trailing, t_len, torch.zeros(B, dtype=torch.int32, device=dev),
+            self._tts_pad_embed, uniform, num_frames=n, do_sample=cfg.subtalker_do_sample,
+            temperature=cfg.subtalker_temperature, top_k=cfg.subtalker_top_k,
+            attn_impl=self._batch_impl, mrope_deltas=self._mrope_deltas,
+            cp_state=init_state(mc.code_predictor, dev, slots=B))
+        codes_np, valid_np = codes.cpu().numpy().astype(np.int32), valid.cpu().numpy()
+        self._count_steps(B * n)
+        self._talker_steps += B                   # the CODEC_BOS steps
+        results, kept = [], 0
+        for b, r in enumerate(reqs):
+            keep = min(int(valid_np[b].sum()), r[2])
+            kept += keep
+            results.append(self._decode_to_audio([codes_np[b, i] for i in range(keep)]))
+        self._frames_generated = kept
+        return results
+
     # ── what every path shares ───────────────────────────────────────────
 
     def _new_request(self, text: str):
@@ -432,15 +490,13 @@ class TTSEngine:
             out[i].uniform_(0.0, 1.0, generator=self._gen)
         return out
 
-    def _start(self, ids: torch.Tensor, n: torch.Tensor, trailing: torch.Tensor,
-               t_len: torch.Tensor, state):
-        """Text projection, conditioning prefill and the first talker step
-        (the JAX `first_fn` up to its first frame), from the padded ids
-        `[Tpad]` and their count `n` (0-d), both on the device. Writes the
-        trailing rows `[Tpad, H]` bf16 (row i the embedding of content id
-        i+1 below n-6, tts_eos at max(n-6, 0), zero above) and their count
-        max(n-5, 1) in place. Returns (state, token, hidden)."""
-        mc = self.model_config
+    def _prefix(self, ids: torch.Tensor, n: torch.Tensor, trailing: torch.Tensor,
+                t_len: torch.Tensor) -> torch.Tensor:
+        """Text projection and the 8 conditioning rows `[8, H]` (the JAX
+        `first_fn`'s), from the padded ids `[Tpad]` and their count `n`
+        (0-d), both on the device. Writes the trailing rows `[Tpad, H]` bf16
+        (row i the embedding of content id i+1 below n-6, tts_eos at
+        max(n-6, 0), zero above) and their count max(n-5, 1) in place."""
         content = embed_text_ids(self.weights.text_projection, ids)
         prefill = torch.cat([self._role_embeds, self._fused_tags,
                              content[:1] + self._codec_bos_embed[None]])
@@ -450,8 +506,24 @@ class TTSEngine:
                                    torch.where(rows == eos_pos, self._tts_eos_embed[None],
                                                torch.zeros_like(content))))
         t_len.copy_((n - 5).clamp_min(1))
-        return talker_prefill(mc.talker, self.weights.talker, state, prefill,
-                              attn_impl=self._attn_impl, mrope_deltas=self._mrope_deltas)
+        return prefill
+
+    def _start(self, ids: torch.Tensor, n: torch.Tensor, trailing: torch.Tensor,
+               t_len: torch.Tensor, state, attn_impl: str | None = None):
+        """`_prefix`, then the conditioning prefill and the first talker step
+        (the JAX `first_fn` up to its first frame) on `attn_impl` (default:
+        the engine's). Returns (state, token, hidden)."""
+        prefill = self._prefix(ids, n, trailing, t_len)
+        return talker_prefill(self.model_config.talker, self.weights.talker, state, prefill,
+                              attn_impl=attn_impl or self._attn_impl,
+                              mrope_deltas=self._mrope_deltas)
+
+    def _talker_cache(self):
+        """A fresh talker state; on the backends without the decode kernel
+        it carries its position on the device, where their single-token
+        steps read it."""
+        return init_state(self.model_config.talker, self.device, self._kv_dtype,
+                          device_pos=self._attn_impl != "mega")
 
     def _frames(self, state, token, hidden, trailing, t_len, idx0, uniform, n: int):
         """`frames_chunk` over n frames with the engine's weights and options."""
@@ -488,7 +560,7 @@ class TTSEngine:
         the ring of host slots. Graphs themselves are captured by `_prepare`."""
         mc, dev = self.model_config, self.device
         self._graphs = ChunkGraphs(dev)
-        self._talker = init_state(mc.talker, dev, self._kv_dtype)
+        self._talker = self._talker_cache()
         self._pos = 0                      # the talker's host position
         self._tok = torch.zeros((), dtype=torch.int64, device=dev)
         self._hid = torch.zeros(mc.talker.hidden_size, dtype=torch.float32, device=dev)
@@ -636,6 +708,8 @@ class TTSEngine:
         """The static tensors a stream's next replay reads, besides the cache."""
         out = {"tok": self._tok, "hid": self._hid, "idx0": self._idx0, "t_len": self._t_len,
                "trailing": self._trailing[Tpad]}
+        if self._talker.pos is not None:
+            out["pos"] = self._talker.pos
         out.update({("ctx", m): t for m, t in self._ctx.items()})
         return out
 
@@ -889,8 +963,8 @@ class TTSEngine:
         ids = torch.from_numpy(ids).to(dev)
         trailing = torch.empty((Tpad, mc.talker.hidden_size), dtype=torch.bfloat16, device=dev)
         t_len = torch.empty((), dtype=torch.int32, device=dev)
-        state = init_state(mc.talker, dev, self._kv_dtype)
-        state, token, hidden = self._start(ids[:Tpad], ids[Tpad], trailing, t_len, state)
+        state, token, hidden = self._start(ids[:Tpad], ids[Tpad], trailing, t_len,
+                                           self._talker_cache())
         self._count_steps(0, first=True)
         c2w = self._c2w and self.vocoder_weights is not None
         base, prev = 0, None

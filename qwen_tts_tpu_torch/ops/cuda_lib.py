@@ -28,7 +28,7 @@ COMPILE_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 _lib: ctypes.CDLL | None = None
 build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas lines)
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 MAX_SECTIONS = 8   # kQttsMaxSections in csrc/decode_layer.cuh
 _INTS = ctypes.c_int * (1 + MAX_SECTIONS)   # a position row: cache row + sections
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "qtts_launch_info": ([_DEC, _IP], _I),
     "qtts_set_positions": ([_P, _I, _IP, _P], _I),
     "qtts_decode_step": ([_DEC] + [_P] * 4 + [_I, _I, _IP] + [_P] * 4, _I),
-    "qtts_decode_attention": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    "qtts_decode_attention": ([_P] * 7 + [_I] * 7 + [_LL] * 4 + [_P, _P], _I),
     "qtts_generate": ([_DEC] + [_P] * 5 + [_I, _I, _IP, _P, _P, _I, _P], _I),
 }
 

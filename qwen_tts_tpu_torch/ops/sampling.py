@@ -27,14 +27,16 @@ def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 def sample_logits(logits: torch.Tensor, do_sample: bool, temperature: float = 0.9,
                   top_k: int = 50, noise: torch.Tensor | None = None) -> torch.Tensor:
-    """Return a 0-d int64 token. With sampling on, `noise` holds Gumbel
-    noise of shape `[top_k]` (or `[V]` when top-k does not restrict)."""
+    """Tokens (int64) of logits `[..., V]`: `[]` for one row, `[B]` for B.
+    With sampling on, `noise` holds Gumbel noise of shape `[..., top_k]`
+    (or `[..., V]` when top-k does not restrict)."""
     if not do_sample or temperature <= 0.0:
-        return torch.argmax(logits)
+        return torch.argmax(logits, dim=-1)
     if noise is None:
         raise ValueError("sampling needs Gumbel noise")
     scaled = logits / temperature
     if 0 < top_k < logits.shape[-1]:
         vals, idxs = torch.topk(scaled, top_k)
-        return idxs[torch.argmax(vals + noise).reshape(1)][0]
-    return torch.argmax(scaled + noise)
+        pick = torch.argmax(vals + noise, dim=-1, keepdim=True)
+        return idxs.gather(-1, pick)[..., 0]
+    return torch.argmax(scaled + noise, dim=-1)

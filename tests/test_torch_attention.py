@@ -6,7 +6,8 @@ Inputs are made with numpy from a seed and rounded to bf16 on both sides
 mode with 64-row chunks, as tests/test_attention_kernel.py runs it, and the
 tolerance is that test's, rtol = atol = 2e-3. On the CPU the port's
 `decode_attention` runs its plain version; the CUDA kernel is compared
-with it by the `gpu`-marked test."""
+with it by the `gpu`-marked test. Positions are int32 tensors, as the
+kernel reads them from the device (`_pos`)."""
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,10 @@ def _inputs(HQ, KVH, L, S, D, position, seed, poison=True):
     return q, k_new, v_new, k, v
 
 
+def _pos(position, device="cpu"):
+    return torch.tensor(position, dtype=torch.int32, device=device)
+
+
 def _both(q, k_new, v_new, k, v, li, position):
     want = np.asarray(ja.decode_attention(
         jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new),
@@ -48,19 +53,22 @@ def _both(q, k_new, v_new, k, v, li, position):
         chunk=64, interpret=True))
     got = ta.decode_attention(
         torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
-        torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), li, position)
+        torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), li, _pos(position))
     return want, got
 
 
 @pytest.mark.parametrize("position", [0, 1, 64, 65, 200, 256])
-def test_decode_attention_matches_pallas_interpret(position):
+def test_decode_attention_matches_pallas_interpret(position, monkeypatch):
     q, k_new, v_new, k, v = _inputs(16, 8, 3, 256, 128, position, seed=position)
-    before = ta.decode_attention.launches
+
+    def no_kernel():
+        raise AssertionError("the CPU path loaded the kernel's library")
+
+    monkeypatch.setattr(ta, "load_library", no_kernel)     # the CPU never launches
     want, got = _both(q, k_new, v_new, k, v, 1, position)
     assert got.shape == (16, 128) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
     assert np.isfinite(got.numpy()).all()
-    assert ta.decode_attention.launches == before        # the CPU never launches
 
 
 def test_decode_attention_gqa_groups_differ():
@@ -74,11 +82,22 @@ def test_decode_attention_rejects_bad_indices_and_devices():
     q, k_new, v_new, k, v = (torch.from_numpy(a) for a in _inputs(4, 2, 2, 8, 128, 4, 1, poison=False))
     k, v = k.bfloat16(), v.bfloat16()
     with pytest.raises(ValueError, match="outside"):
-        ta.decode_attention(q, k_new, v_new, k, v, 2, 4)
+        ta.decode_attention(q, k_new, v_new, k, v, 2, _pos(4))
+    with pytest.raises(ValueError, match="outside"):     # past the cache's 8 rows
+        ta.decode_attention(q, k_new, v_new, k, v, 0, _pos(9))
     with pytest.raises(ValueError, match="outside"):
-        ta.decode_attention(q, k_new, v_new, k, v, 0, 9)
+        ta.decode_attention(q, k_new, v_new, k, v, 0, _pos(-1))
+    with pytest.raises(ValueError, match="outside"):     # one slot of two past the end
+        ta.decode_attention(*(torch.stack([t, t]) for t in (q, k_new, v_new, k, v)), 0,
+                            _pos([3, 9]))
+    with pytest.raises(ValueError, match="positions"):    # a host int is not a position
+        ta.decode_attention(q, k_new, v_new, k, v, 0, 4)
+    with pytest.raises(ValueError, match="positions"):    # one stream takes a 0-d tensor
+        ta.decode_attention(q, k_new, v_new, k, v, 0, _pos([4]))
+    with pytest.raises(ValueError, match="positions"):
+        ta.decode_attention(q, k_new, v_new, k, v, 0, _pos(4).long())
     with pytest.raises(ValueError, match="no kernel"):
-        ta.decode_attention(q.to("meta"), k_new, v_new, k, v, 0, 4)
+        ta.decode_attention(q.to("meta"), k_new, v_new, k, v, 0, _pos(4))
 
 
 CFG = tiny_test_config(max_seq_len=64).talker
@@ -100,7 +119,7 @@ def test_pallas_backend_step_matches_jax_dense(weights, monkeypatch):
     real = ta.decode_attention
 
     def counting(*a):
-        calls.append(a[5:])
+        calls.append((a[5], a[6].tolist()))
         return real(*a)
 
     monkeypatch.setattr(td, "decode_attention", counting)
@@ -121,7 +140,7 @@ def test_pallas_backend_step_matches_jax_dense(weights, monkeypatch):
         top2 = np.sort(jl)[-2:]
         assert int(tt) == int(jt) or top2[1] - top2[0] < 2e-2, step
         embed = np.array(jh)
-    assert calls == [(li, 8 + s) for s in range(6) for li in range(CFG.num_layers)]
+    assert calls == [(li, [8 + s]) for s in range(6) for li in range(CFG.num_layers)]
     assert ts.position == 14
 
 
@@ -137,11 +156,12 @@ def test_cuda_kernel_matches_plain(position):
     q, k_new, v_new, k, v = (torch.from_numpy(a).cuda()
                              for a in _inputs(16, 8, 3, 4096, 128, position, seed=5))
     k, v = k.bfloat16(), v.bfloat16()
-    before = ta.decode_attention.launches
-    got = ta.decode_attention(q, k_new, v_new, k, v, 1, position)
-    assert ta.decode_attention.launches == before + 1
-    again = ta.decode_attention(q, k_new, v_new, k, v, 1, position)
-    want = ta.decode_attention_reference(q, k_new, v_new, k, v, 1, position)
+    pos = _pos(position, "cuda")
+    before = ta.device_launches(q.device)
+    got = ta.decode_attention(q, k_new, v_new, k, v, 1, pos)
+    assert ta.device_launches(q.device) == before + 1
+    again = ta.decode_attention(q, k_new, v_new, k, v, 1, pos)
+    want = ta.decode_attention_reference(q, k_new, v_new, k, v, 1, pos)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-3 * max(1.0, float(want.abs().max()))
     assert torch.equal(got, again)

@@ -77,7 +77,8 @@ def test_plain_attention_matches_pallas_at_tile_boundaries(position):
         chunk=64, interpret=True))
     got = ta.decode_attention_reference(
         torch.from_numpy(q), torch.from_numpy(k_new), torch.from_numpy(v_new),
-        torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), 1, position)
+        torch.from_numpy(k).bfloat16(), torch.from_numpy(v).bfloat16(), 1,
+        torch.tensor(position, dtype=torch.int32))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
 
 

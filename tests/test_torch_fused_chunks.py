@@ -333,11 +333,24 @@ def test_eager_loop_stops_at_eos_without_speculation(eager, monkeypatch):
 
 
 @pytest.mark.parametrize("backend", ["pallas", "dense"])
-def test_uncapturable_backends_raise_with_fused_chunks_on_cuda(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        TTSEngine(TTSConfig(backend=backend))
-    TTSEngine(TTSConfig(backend=backend, fused_chunks=False))
-    TTSEngine(TTSConfig(device="cpu", backend=backend))
+def test_uncapturable_backends_raise_with_fused_chunks_on_cuda(tiny_cfg, weights, fused,
+                                                               backend):
+    """Backends "pallas" and "dense" used to raise with `fused_chunks=True` on
+    CUDA (their ops took host positions). They now build their graphs: the
+    engine takes the option, its talker state carries its position on the
+    device, and the bodies its graphs replay (run eagerly here) yield the
+    eager loop's codes and audio bit for bit, leaving the device position
+    where the host's is."""
+    TTSEngine(TTSConfig(backend=backend))
+    g = _engine(tiny_cfg, weights, fused.vocoder_weights, backend=backend, chunk_frames=4)
+    e = _engine(tiny_cfg, weights, fused.vocoder_weights, backend=backend, chunk_frames=4,
+                fused_chunks=False)
+    assert g._talker.pos is not None and g._talker.pos.dtype == torch.int32
+    gc, ec = _chunks(g, TEXT, 4, 81), _chunks(e, TEXT, 4, 81)
+    np.testing.assert_array_equal(_frames(gc), _frames(ec))
+    for (ga, _), (ea, _) in zip(gc, ec):
+        np.testing.assert_array_equal(ga, ea)
+    assert int(g._talker.pos) == g._pos
 
 
 def _to_cuda(tree):

@@ -55,7 +55,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(names) >= 20          # every module was imported
     assert {"qwen_tts_tpu_torch.core.safetensors", "qwen_tts_tpu_torch.vocoder.code2wav",
             "qwen_tts_tpu_torch.vocoder.code2wav_fast",
-            "qwen_tts_tpu_torch.vocoder.loader"} <= set(names)
+            "qwen_tts_tpu_torch.vocoder.loader", "qwen_tts_tpu_torch.runtime.batch",
+            "qwen_tts_tpu_torch.runtime.continuous"} <= set(names)
 
 
 def test_port_imports_no_file_or_tokenizer_library_at_module_level():

@@ -142,7 +142,7 @@ def test_plain_generation_equals_step_loop_int4_kv8(jax_bf16):
         loop.append(tok)
     assert torch.equal(toks.long(), torch.cat(loop))
     for a, b in zip(sg[:2] + sg[3:], sl[:2] + sl[3:]):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_wrapper_rejects_groups_the_kernel_does_not_take(jax_bf16):
@@ -214,4 +214,4 @@ def test_cuda_generation_equals_step_loop_kv8(jax_bf16, form):
         loop.append(tok)
     assert torch.equal(toks.long(), torch.cat(loop))
     for a, b in zip(sk[:2] + sk[3:], sl[:2] + sl[3:]):
-        assert torch.equal(a, b)
+        assert (a is None and b is None) or torch.equal(a, b)

@@ -57,8 +57,8 @@ def build(variants):
             if "registers" in line:
                 print(f"  ptxas [{v}]: {line.strip()}")
         lib = ctypes.CDLL(str(so), mode=ctypes.RTLD_LOCAL)
-        lib.qtts_decode_attention.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        lib.qtts_decode_attention.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                              + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 2)
         lib.qtts_decode_attention.restype = ctypes.c_int
         libs[v] = lib
     return libs
@@ -93,14 +93,17 @@ def main() -> int:
         for v in order:
             lib = libs[v]
             for pos in POSITIONS:
+                p = torch.full((), pos, dtype=torch.int32, device="cuda")
+
                 def call():
                     err = lib.qtts_decode_attention(
                         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kc.data_ptr(),
-                        vc.data_ptr(), out.data_ptr(), L, HQ, KVH, S, D, layer, pos, stream)
+                        vc.data_ptr(), out.data_ptr(), p.data_ptr(), 1, L, HQ, KVH, S, D,
+                        layer, HQ * D, KVH * D, L * KVH * S * D, HQ * D, None, stream)
                     assert err == 0, err
                 out.fill_(float("nan"))
                 call()
-                want = decode_attention_reference(q, k_new, v_new, kc, vc, layer, pos)
+                want = decode_attention_reference(q, k_new, v_new, kc, vc, layer, p)
                 torch.cuda.synchronize()
                 err = float((out - want).abs().max())
                 ok = err <= 2e-3 * max(1.0, float(want.abs().max()))

@@ -73,6 +73,7 @@ from __future__ import annotations
 import asyncio
 import ctypes
 import importlib.util
+import inspect
 import itertools
 import json
 import os
@@ -444,7 +445,11 @@ def steps(eng, card, positions=POSITIONS):
     kc = torch.randn(L, KVH, S, D, generator=gen, device="cuda").bfloat16()
     vc = torch.randn(L, KVH, S, D, generator=gen, device="cuda").bfloat16()
     for pos in (300, 4095, 8191):
-        call = lambda: decode_attention(q, k_new, v_new, kc, vc, L - 1, pos)  # noqa: E731
+        # the position as this tree's wrapper takes it: a device int32 tensor
+        # (a host int in trees before device positions)
+        at = (torch.full((), pos, dtype=torch.int32, device="cuda")
+              if "positions" in inspect.signature(decode_attention).parameters else pos)
+        call = lambda: decode_attention(q, k_new, v_new, kc, vc, L - 1, at)  # noqa: E731
         call()
         parts, _ = _parts(call, 100)
         print(f"steps: decode attention at position {pos}: device "
