@@ -165,10 +165,48 @@ is printed):
      choice the slot would have made otherwise, a greedy code 0 within
      2e-2, or two adjacent top-k logits within 2e-2: a rank swap that
      reorders the sampler's noise).
+ 17. the Qwen3-0.6B text LM at full width (`models/text_lm.py`,
+     `TEXT_LM_CONFIG`: 28 x 1024, I = 3072, 16/8 heads, vocab 151,936,
+     the head tied to the embedding, S = 2048), random bf16 weights from a
+     seed: written as `model.safetensors` under the Qwen3 key names and
+     read back by `load_text_lm_weights`, bit for bit; the decode-step
+     kernel with its head at V = 151,936 against its plain version at
+     positions 0, 63, 300 and 2047 (phase 2's bars, logits cosine > 0.99,
+     the same argmax or a near tie), its device span and call time at 300
+     and 2047 beside the bound; `TextLM.generate` of 256 tokens from a
+     64-id prompt on "mega", "pallas" and "dense", bf16 and int8 KV, the
+     kernels' own launch counts exact (B1 one a step on "mega", B3 one a
+     layer a step on "pallas" with a bf16 cache), each backend's tokens
+     equal to "dense"'s or parting where the two tokens are within 2e-2 in
+     the dense run's own logits (replayed to that step; with an int8 cache
+     2e-2 x max(1, max |logit|), phase 9's bar for int8-cache logits);
+     `generate_stream` equal to `generate` at chunks 1, 16 and
+     32; tok/s and the decode loop's device busy share;
+ 18. the agent turn (`demos/local_agent.py::agent_turn`), the phase-17 LM
+     on "mega" and phase 3's engine on one card: two turns of 3 sentences
+     of 10 words, LM chunk 16, under a deadline that fails the run; LM
+     first-sentence latency, first audio after it, user to first audio
+     and the turn's RTF; the decode-step kernel's own counts, in the LM's
+     workspace equal to the LM's decode steps and in the engine's equal to
+     its talker and code-predictor steps; each spoken sentence's codes
+     equal to the same sentence spoken alone at its request number; then
+     255 LM steps beside one TTS request from two threads against each
+     alone (whether the two models' persistent launches serialize);
+ 19. the serving front-ends on phase 16's bf16 batcher (S = 1024, 4
+     slots) through `SharedBatcher`: the WebSocket server
+     (`serving/ws_server.py` on the port's own framing) on 127.0.0.1 with
+     the port's client: 4 clients at once (bytes = 2 x samples, frames =
+     chunks, first-audio p50 beside phase 16's), a ping and a refusal at
+     `max_pending` 0 while every slot is busy, a barge-in `cancel` after
+     the first audio frame (its terminal counts exactly the frames seen,
+     then a normal request on the same connection); both Pipecat services
+     through their frame sequence on the stand-ins (and a hang-up: no
+     Stopped frame); the decode-attention kernel's own count > 0. Under a
+     deadline too.
 The next-to-last line is a JSON object describing the kernels, one entry
-per quantized form as well; the last line is {"ok": true, "device":
-{...}}. JAX and the JAX package are blocked for the whole run: the port
-must not need them.
+per quantized form and one for the text LM's form of the decode step as
+well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
+package are blocked for the whole run: the port must not need them.
 """
 
 from __future__ import annotations
@@ -470,6 +508,7 @@ def compare_kernel(cfg, w, pos: int, with_head: bool, gen, mrope: bool, kv8: boo
         tie = float(top2[0] - top2[1]) < 1e-3 * float(logits_r.abs().max())
         res["argmax_equal"] = int(logits_k.argmax()) == int(logits_r.argmax())
         res["logits_max_abs"] = float((logits_k - logits_r).abs().max())
+        res["logits_cos"] = _cos(logits_k, logits_r)
         assert res["argmax_equal"] or tie, res
         if quant_bar:
             assert res["logits_max_abs"] <= 2e-2 * max(1.0, float(logits_r.abs().max())), res
@@ -1595,8 +1634,9 @@ def _profiled(fn):
     return busy_us, graph_launches, wall
 
 
-def serving_phase(eng3, card) -> dict:
-    """Phase 16 (see the module docstring)."""
+def serving_phase(eng3, card):
+    """Phase 16 (see the module docstring). Returns (results, the bf16
+    batcher)."""
     import numpy as np
     import torch
 
@@ -1689,10 +1729,11 @@ def serving_phase(eng3, card) -> dict:
               f"and {admissions} admissions, one graph each) {card}")
         if not kw:
             res["synthesize_batch"] = batch_against_singles(eng, frame_loop, card)
+            kept = b                  # phase 19 serves its front-ends on it
         out[label] = res
         del b, eng
         torch.cuda.empty_cache()
-    return out
+    return out, kept
 
 
 BATCH_TEXTS = ("Hello from the GPU.", "One more short line.", "Batched speech.",
@@ -1828,6 +1869,416 @@ def batch_against_singles(eng, frame_loop, card) -> dict:
             ("one slot", entry, res)
     print(f"synthesize_batch of {len(texts)} texts against each alone, padded to four slots "
           f"by copies of it and on one slot fed the batch's codes: {json.dumps(res)} {card}")
+    return res
+
+
+# ── phases 17-19: the text LM, the agent turn, the serving front-ends ──────
+
+LM_POSITIONS = (0, 63, 300, 2047)   # phase 17: B1 at the text LM's width against plain
+LM_TIMED = (300, 2047)
+LM_TOKENS = 256                     # from the 64-id prompt of demos/local_agent.py
+LM_CHUNKS = (1, 16, 32)
+TIE_GAP = 2e-2                      # two logits this close are a near tie (bf16 cache)
+AGENT_TURNS, AGENT_SENTENCES, AGENT_WORDS, AGENT_CHUNK = 2, 3, 10, 16
+AGENT_DEADLINE_S = 300              # phase 18 fails the run past this
+FRONT_CLIENTS = 4
+
+
+def _deadline(phase: str) -> None:
+    """Called by a watchdog thread: the phase hung, so the run fails."""
+    print(f"chip_smoke: {phase} passed its deadline", file=sys.stderr, flush=True)
+    os._exit(3)
+
+
+def _lm_leaves(w):
+    return list(w.layers) + [w.final_norm, w.embed, w.lm_head, w.rope.cos, w.rope.sin]
+
+
+def _parting(cfg, w, prompt, a, b, kv: str) -> dict:
+    """Where a backend's greedy stream `a` parts from the dense one `b` of
+    the same prompt, and how near a tie the two tokens were in the dense
+    run's own logits there (replayed: the prompt's prefill, then dense
+    steps on b[:i]). The bar: TIE_GAP; with an int8 cache TIE_GAP * max(1,
+    max |logit|), phase 9's bar for int8-cache logits of kernel against
+    plain (two quantized rows a rounding apart move the logits by that)."""
+    import torch
+    from qwen_tts_tpu_torch.models.decoder import (
+        decode_step,
+        init_state,
+        lm_head_logits,
+        prefill,
+    )
+
+    i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if i is None:
+        return {"equal": True}
+    dev = w.embed.device
+    dtype = torch.int8 if kv == "int8" else torch.bfloat16
+    state, _tok, normed = prefill(cfg, w, init_state(cfg, dev, dtype),
+                                  w.embed[torch.tensor(list(prompt), device=dev)])
+    for t in b[:i]:
+        state, _tok, normed = decode_step(cfg, w, state, torch.full((1,), t, device=dev),
+                                          attn_impl="dense")
+    logits = lm_head_logits(w, normed[None])[0]
+    gap = float(logits[b[i]] - logits[a[i]])
+    bar = TIE_GAP * (1.0 if kv == "bf16" else max(1.0, float(logits.abs().max())))
+    return {"equal": False, "first_difference": i, "tokens": [a[i], b[i]], "gap": gap,
+            "bar": bar, "dense_choice_replayed": int(logits.argmax()) == b[i],
+            "near_tie": 0 <= gap < bar}
+
+
+def text_lm_phase(card):
+    """Phase 17 (see the module docstring). Returns (results, the weights)."""
+    import tempfile
+
+    import torch
+
+    from qwen_tts_tpu_torch.core.safetensors import save_file
+    from qwen_tts_tpu_torch.demos.local_agent import PROMPT_BUCKET, encode_prompt
+    from qwen_tts_tpu_torch.models import text_lm
+    from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.ops import attention, decode_step
+    from qwen_tts_tpu_torch.runtime.generate import generate_tokens
+
+    cfg = text_lm.TEXT_LM_CONFIG
+    w, init_s = _timed(lambda: text_lm.init_text_lm_weights(SEED + 17, cfg))
+    dev = w.embed.device
+    with tempfile.TemporaryDirectory() as d:
+        _, write_s = _timed(lambda: save_file(text_lm.text_lm_state_dict(w, cfg),
+                                              f"{d}/model.safetensors"))
+        (lw, tok), load_s = _timed(lambda: text_lm.load_text_lm_weights(d, cfg, dev,
+                                                                        verbose=False))
+    same = all(torch.equal(a, b) for a, b in zip(_lm_leaves(w), _lm_leaves(lw)))
+    res = {"init_s": init_s, "checkpoint_write_s": write_s, "checkpoint_load_s": load_s,
+           "round_trip_bit_identical": same, "tokenizer": type(tok).__name__,
+           "head_bytes": w.lm_head.numel() * 2,
+           "grid": decode_step.launch_info(cfg, w, init_state(cfg, dev))}
+    print(f"text LM checkpoint round trip: {json.dumps(res)} {card}")
+    assert same and w.lm_head.is_contiguous()
+    del lw
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    errs, ctx = [], None
+    for pos in LM_POSITIONS:
+        r, c = compare_kernel(cfg, w, pos, True, gen, mrope=False)
+        print("text LM kernel vs plain", json.dumps(r))
+        assert r["logits_cos"] > 0.99, r
+        errs.append(max(r["normed_max_abs"], r["logits_max_abs"]))
+        ctx = c if pos == 300 else ctx
+        del c
+    res["max_abs_err"] = max(errs)
+    res["ms"], res["plain_ms"] = time_steps(cfg, w, ctx, True, 30)
+    del ctx
+    res["by_position"] = {}
+    for pos in LM_TIMED:
+        state = random_state(cfg, pos, gen)
+        embed = torch.randn(cfg.hidden_size, generator=gen, device="cuda")
+        step = lambda: decode_step.megakernel_forward(cfg, w, state, embed)  # noqa: E731
+        t = {"device_span_ms": _span_ms(step, 20), "call_ms": _time_ms(step, 20)}
+        t["bound_ms"], t["bound_by"] = _bound_ms(*step_cost(cfg, w, pos, True))
+        res["by_position"][str(pos)] = t
+        print(f"text LM step at position {pos}: {json.dumps(t)} {card}")
+        del state
+    res["bound_ms"] = res["by_position"]["300"]["bound_ms"]
+    res["bound_by"] = res["by_position"]["300"]["bound_by"]
+    print(f"text LM step (pos 300, V={cfg.vocab_size}): kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) {card}")
+
+    # TextLM on the three backends, bf16 and int8 KV
+    prompt = encode_prompt(TEXTS[1])
+    assert len(prompt) == PROMPT_BUCKET
+    runs, launches = {}, {}
+    for kv in ("bf16", "int8"):
+        for impl in ("mega", "pallas", "dense"):
+            lm = text_lm.TextLM(w, cfg, attn_impl=impl, kv_cache=kv)
+            torch.cuda.synchronize()
+            d0, a0 = decode_step.device_launches(cfg, dev), attention.device_launches(dev)
+            t0 = time.perf_counter()
+            runs[(impl, kv)] = lm.generate(prompt, LM_TOKENS)
+            wall = time.perf_counter() - t0
+            launches[f"{impl}/{kv}"] = {
+                "decode_step": decode_step.device_launches(cfg, dev) - d0,
+                "decode_attention": attention.device_launches(dev) - a0, "wall_s": wall}
+            want_b1 = LM_TOKENS - 1 if impl == "mega" else 0
+            want_b3 = cfg.num_layers * (LM_TOKENS - 1) if impl == "pallas" and kv == "bf16" else 0
+            assert launches[f"{impl}/{kv}"]["decode_step"] == want_b1, launches
+            assert launches[f"{impl}/{kv}"]["decode_attention"] == want_b3, launches
+    partings = {f"{impl}/{kv}": _parting(cfg, w, prompt, runs[(impl, kv)], runs[("dense", kv)],
+                                         kv)
+                for kv in ("bf16", "int8") for impl in ("mega", "pallas")}
+    res.update(backends=launches, partings_from_dense=partings)
+    print(f"text LM generate ({LM_TOKENS} tokens), tokens against dense: {json.dumps(partings)}; "
+          f"launches and walls: {json.dumps(launches)} {card}")
+    assert all(p["equal"] or p["near_tie"] for p in partings.values()), partings
+    lm = text_lm.TextLM(w, cfg, attn_impl="mega")
+    ref = runs[("mega", "bf16")]
+    for chunk in LM_CHUNKS:
+        streamed = [t for b in lm.generate_stream(prompt, LM_TOKENS, chunk=chunk) for t in b]
+        assert streamed == ref, chunk
+    res["stream_equals_generate"] = list(LM_CHUNKS)
+
+    # tok/s, and the decode loop's device span with the host ahead over its wall
+    state0, first, _ = text_lm._prefill_ids(cfg, w, torch.tensor(prompt, device=dev))
+    loop = lambda: generate_tokens(cfg, w, _clone(state0), first, LM_TOKENS - 1,  # noqa: E731
+                                   attn_impl="mega")[1]
+    loop().tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop().tolist()
+    loop_wall = time.perf_counter() - t0
+    span = _span_ms(loop, 1) / 1e3
+    t0 = time.perf_counter()
+    lm.generate(prompt, LM_TOKENS)
+    gen_wall = time.perf_counter() - t0
+    res.update(tok_s=LM_TOKENS / gen_wall, generate_wall_s=gen_wall,
+               decode_loop_tok_s=(LM_TOKENS - 1) / loop_wall, decode_loop_wall_s=loop_wall,
+               decode_loop_device_span_s=span, device_busy_share=span / loop_wall,
+               device_span_ms_per_step=span * 1e3 / (LM_TOKENS - 1))
+    print(f"text LM [mega, bf16]: {res['tok_s']:.1f} tok/s ({LM_TOKENS} tokens from a "
+          f"{len(prompt)}-id prompt, prefill included); decode loop "
+          f"{res['decode_loop_tok_s']:.1f} tok/s, {res['device_span_ms_per_step']:.4f} ms a step "
+          f"on the device, device busy share {res['device_busy_share']:.4f} {card}")
+    return res, w
+
+
+def _speak(eng, text: str, request: int | None = None) -> list:
+    """A streaming request's codec frames (numbered `request` if given)."""
+    if request is not None:
+        eng._requests = request - 1
+    frames: list = []
+
+    async def run():
+        async for _audio, _sr in eng.synthesize_streaming(text, frames=frames):
+            pass
+
+    asyncio.run(run())
+    return frames
+
+
+def agent_phase(w, eng, card) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.demos import local_agent as agent
+    from qwen_tts_tpu_torch.models.text_lm import TEXT_LM_CONFIG, TextLM, _prefill_ids
+    from qwen_tts_tpu_torch.ops import decode_step
+    from qwen_tts_tpu_torch.runtime.generate import generate_tokens
+
+    cfg, dev = TEXT_LM_CONFIG, w.embed.device
+    watchdog = threading.Timer(AGENT_DEADLINE_S, _deadline, args=("phase 18",))
+    watchdog.daemon = True
+    watchdog.start()
+    try:
+        lm = TextLM(w, cfg, attn_impl="mega")
+        n_tok = AGENT_SENTENCES * AGENT_WORDS
+        list(lm.generate_stream(agent.encode_prompt("warm"), n_tok, chunk=AGENT_CHUNK))
+        _reset_launches()
+        torch.cuda.synchronize()
+        # B1 counts its launches in each workspace: the LM's (its thread's
+        # stream) and the engine's graphs'
+        lm_b1 = lambda: decode_step.device_launches(cfg, dev)  # noqa: E731
+        l0, e0, m0, s0 = lm_b1(), eng.decode_launches(), eng.get_metrics(), lm.steps
+        turns = []
+        for i in range(AGENT_TURNS):
+            turns.append(asyncio.run(agent.agent_turn(
+                lm, eng, agent.USER_TURNS[i % len(agent.USER_TURNS)],
+                sentences=AGENT_SENTENCES, words_per_sentence=AGENT_WORDS,
+                lm_chunk=AGENT_CHUNK)))
+        torch.cuda.synchronize()
+        m1 = eng.get_metrics()
+        steps = {"lm": lm.steps - s0, "talker": m1["talker_steps"] - m0["talker_steps"],
+                 "code_predictor": m1["cp_steps"] - m0["cp_steps"]}
+        res = {"decode_step_launches": {"lm": lm_b1() - l0, "engine": eng.decode_launches() - e0},
+               "decode_steps": steps,
+               "turns": [{"first_sentence_ms": t.first_sentence_s * 1e3,
+                          "first_audio_after_sentence_ms":
+                              (t.first_audio_s - t.first_sentence_s) * 1e3,
+                          "user_to_first_audio_ms": t.first_audio_s * 1e3,
+                          "wall_s": t.wall_s, "audio_s": t.audio_s,
+                          "rtf": t.wall_s / t.audio_s, "sentences": t.spoken}
+                         for t in turns]}
+        print(f"agent turn on one card: {json.dumps(res)} {card}")
+        b1 = res["decode_step_launches"]
+        assert b1["lm"] == steps["lm"] > 0, res
+        assert b1["engine"] == steps["talker"] + steps["code_predictor"] > 0, res
+        assert all(t.spoken == AGENT_SENTENCES and t.first_audio_s for t in turns), res
+
+        # each sentence alone, at its request number: the same codes
+        equal = []
+        for t in turns:
+            for sent, request, frames in t.sentences:
+                alone = _speak(eng, sent, request)
+                equal.append(len(frames) == len(alone) and bool(
+                    np.array_equal(np.stack(frames), np.stack(alone))))
+        res["sentences_equal_alone"] = equal
+        print(f"agent turn: each sentence's codes equal the sentence alone: {equal}")
+        assert all(equal) and len(equal) == AGENT_TURNS * AGENT_SENTENCES
+
+        # two persistent launches from two threads: serialized or overlapped
+        ids = torch.tensor(agent.encode_prompt(agent.USER_TURNS[0]), device=dev)
+        state0, first, _ = _prefill_ids(cfg, w, ids)
+
+        def lm_alone():
+            generate_tokens(cfg, w, _clone(state0), first, LM_TOKENS - 1, "mega")[1].tolist()
+
+        lm_alone()
+        _, t_lm = _timed(lm_alone)
+        _, t_tts = _timed(lambda: _speak(eng, TEXTS[1]))
+        th = threading.Thread(target=lm_alone)
+        t0 = time.perf_counter()
+        th.start()
+        _speak(eng, TEXTS[1])
+        th.join()
+        t_both = time.perf_counter() - t0
+        ws_lm = decode_step.workspace(cfg, dev).data_ptr()
+        ws_eng = eng._graphs.owned.workspace.data_ptr()
+        res["concurrency"] = {"lm_alone_s": t_lm, "tts_alone_s": t_tts, "both_s": t_both,
+                              "both_over_sum": t_both / (t_lm + t_tts),
+                              "both_over_max": t_both / max(t_lm, t_tts),
+                              "workspaces_distinct": ws_lm != ws_eng}
+        print(f"agent: {LM_TOKENS - 1} LM steps on the default stream beside one TTS request "
+              f"on the graphs' stream: {json.dumps(res['concurrency'])} {card}")
+        assert ws_lm != ws_eng
+    finally:
+        watchdog.cancel()
+    return res
+
+
+def front_ends_phase(batcher, eng, phase16_p50_ms: float, card) -> dict:
+    """Phase 19 (see the module docstring)."""
+    import threading
+
+    import torch
+
+    from qwen_tts_tpu_torch.ops import attention
+    from qwen_tts_tpu_torch.serving import pipecat_tts as svc
+    from qwen_tts_tpu_torch.serving._websocket import connect
+    from qwen_tts_tpu_torch.serving.shared import SharedBatcher
+    from qwen_tts_tpu_torch.serving.ws_server import TTSWebSocketServer
+
+    watchdog = threading.Timer(AGENT_DEADLINE_S, _deadline, args=("phase 19",))
+    watchdog.daemon = True
+    watchdog.start()
+    shared = SharedBatcher(batcher=batcher)
+    server = TTSWebSocketServer(shared, port=0)
+    texts = [TEXTS[1 + i % 2] for i in range(FRONT_CLIENTS)]
+    attention.reset_device_launches(batcher.eng.device)
+
+    async def to_terminal(ws, t0=None):
+        nbytes = frames = 0
+        first = None
+        while True:
+            msg = await ws.recv()
+            if isinstance(msg, bytes):
+                first = first or time.perf_counter() - (t0 or 0)
+                nbytes, frames = nbytes + len(msg), frames + 1
+                continue
+            return nbytes, frames, json.loads(msg), first
+
+    async def client(uri, text, rid):
+        async with connect(uri, max_size=None) as ws:
+            t0 = time.perf_counter()
+            await ws.send(json.dumps({"type": "synthesize", "text": text, "id": rid}))
+            assert json.loads(await ws.recv())["type"] == "started"
+            nbytes, frames, fin, first = await to_terminal(ws, t0)
+        assert fin["type"] == "stopped" and fin["id"] == rid, fin
+        return {"bytes": nbytes, "frames": frames, "samples": fin["samples"],
+                "chunks": fin["chunks"], "first_audio_ms": first * 1e3}
+
+    async def refusal_and_ping(uri):
+        while batcher.active < FRONT_CLIENTS:          # every slot busy
+            await asyncio.sleep(0.005)
+        async with connect(uri) as ws:
+            await ws.send(json.dumps({"type": "ping"}))
+            pong = json.loads(await ws.recv())
+            server.max_pending = 0                      # --max-pending 0
+            await ws.send(json.dumps({"type": "synthesize", "text": "one too many",
+                                      "id": "late"}))
+            refused = json.loads(await ws.recv())
+            server.max_pending = None
+        return pong, refused
+
+    async def barge_in(uri):
+        async with connect(uri, max_size=None) as ws:
+            await ws.send(json.dumps({"type": "synthesize", "text": TEXTS[2], "id": "barged"}))
+            assert json.loads(await ws.recv())["type"] == "started"
+            first = await ws.recv()
+            assert isinstance(first, bytes)
+            t0 = time.perf_counter()
+            await ws.send(json.dumps({"type": "cancel"}))
+            nbytes, frames, fin, _ = await to_terminal(ws)
+            cancel_ms = (time.perf_counter() - t0) * 1e3
+            await ws.send(json.dumps({"type": "synthesize", "text": TEXTS[0], "id": "next"}))
+            nxt = json.loads(await ws.recv())
+            nb2, fr2, fin2, _ = await to_terminal(ws)
+        return {"terminal": fin, "frames_seen": frames + 1, "bytes_seen": nbytes + len(first),
+                "cancel_to_terminal_ms": cancel_ms, "next_started": nxt, "next": fin2,
+                "next_bytes": nb2, "next_frames": fr2}
+
+    async def drive():
+        await server.start()
+        try:
+            uri = f"ws://{server.host}:{server.port}"
+            clients = asyncio.gather(*[client(uri, t, f"c{i}") for i, t in enumerate(texts)])
+            (pong, refused), got = await asyncio.gather(refusal_and_ping(uri), clients)
+            return got, pong, refused, await barge_in(uri)
+        finally:
+            await server.stop()
+
+    try:
+        got, pong, refused, barge = asyncio.run(drive())
+        first = sorted(g["first_audio_ms"] for g in got)
+        res = {"clients": got, "first_audio_p50_ms": first[len(first) // 2],
+               "phase16_first_audio_p50_ms": phase16_p50_ms, "pong": pong,
+               "refused": refused, "barge_in": barge}
+        assert all(g["bytes"] == 2 * g["samples"] > 0 and g["frames"] == g["chunks"]
+                   for g in got), got
+        assert pong["type"] == "pong" and pong["slots"] == FRONT_CLIENTS, pong
+        assert refused["type"] == "error" and "capacity" in refused["message"], refused
+        t = barge["terminal"]
+        assert t["type"] == "cancelled" and t["chunks"] == barge["frames_seen"], barge
+        assert 2 * t["samples"] == barge["bytes_seen"], barge
+        assert barge["next_started"]["type"] == "started", barge
+        assert barge["next"]["type"] == "stopped", barge
+        assert barge["next_bytes"] == 2 * barge["next"]["samples"] > 0, barge
+
+        # the Pipecat services on the stand-ins: on the shared batcher, and on
+        # an engine of its own (phase 3's)
+        async def frames_of(service, text, hang_up=False):
+            agen, out = service.run_tts(text), []
+            async for f in agen:
+                out.append(type(f).__name__)
+                if hang_up and out[-1] == "TTSAudioRawFrame":
+                    await agen.aclose()
+                    break
+            return out
+
+        cont = svc.ContinuousTTSService(batcher=batcher)
+        single = svc.MegakernelTTSService(engine=eng)
+        seqs = {"continuous": asyncio.run(frames_of(cont, TEXTS[0])),
+                "single": asyncio.run(frames_of(single, TEXTS[0])),
+                "continuous_hang_up": asyncio.run(frames_of(cont, TEXTS[2], hang_up=True))}
+        for name in ("continuous", "single"):
+            s = seqs[name]
+            assert s[0] == "TTSStartedFrame" and s[-1] == "TTSStoppedFrame", (name, s)
+            assert len(s) > 2 and set(s[1:-1]) == {"TTSAudioRawFrame"}, (name, s)
+        assert seqs["continuous_hang_up"][-1] == "TTSAudioRawFrame"
+        res["pipecat"] = {k: {"frames": len(v), "first": v[0], "last": v[-1]}
+                          for k, v in seqs.items()}
+        res["pipecat_available"] = svc.PIPECAT_AVAILABLE
+        torch.cuda.synchronize()
+        res["decode_attention_launches"] = attention.device_launches(batcher.eng.device)
+        assert res["decode_attention_launches"] > 0, res
+    finally:
+        watchdog.cancel()
+    print(f"front ends on {FRONT_CLIENTS} slots: {json.dumps(res)} {card}")
+    print(f"front ends: WebSocket first audio p50 {res['first_audio_p50_ms']:.1f} ms over the "
+          f"socket ({FRONT_CLIENTS} clients at once), the batcher's own in phase 16 "
+          f"{phase16_p50_ms:.1f} ms (8 requests 150 ms apart) {card}")
     return res
 
 
@@ -2147,10 +2598,27 @@ def main() -> int:
     _phase_done(15)
 
     # ── phase 16: continuous batching and synthesize_batch at full width ──
-    serving = serving_phase(eng, card)
+    serving, batcher = serving_phase(eng, card)
     launches["decode_attention_slots"] = serving["bf16"]["decode_attention_launches"]
 
     _phase_done(16)
+
+    # ── phase 17: the text LM at full width on the decode-step kernel ──
+    lm_res, lm_w = text_lm_phase(card)
+
+    _phase_done(17)
+
+    # ── phase 18: the agent turn, the text LM and the TTS engine on one card ──
+    agent_res = agent_phase(lm_w, eng, card)
+    del lm_w
+
+    _phase_done(18)
+
+    # ── phase 19: the serving front-ends on phase 16's batcher ──
+    front = front_ends_phase(batcher, eng, serving["bf16"]["first_audio_p50_ms"], card)
+    del batcher
+
+    _phase_done(19)
     assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
                                                  *gerr.values(), slot_attn["max_abs_err"],
                                                  slot_attn["max_abs_err_slots"]])
@@ -2167,6 +2635,17 @@ def main() -> int:
          "kernels_per_step": per_step, "grid": grid, "engine": engine_t,
          "code2wav_graph_launches": {dt: r["decode_step_launches"]
                                      for dt, r in c2w_res["dtypes"].items()}},
+        {"name": "decode_step[text LM: V=151936, tied head]", "route": "cuda",
+         "source": "qwen_tts_tpu_torch/csrc/decode_step.cu",
+         "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
+         "launches": agent_res["decode_step_launches"]["lm"],
+         "max_abs_err": lm_res["max_abs_err"], "ms": lm_res["ms"],
+         "plain_ms": lm_res["plain_ms"], "bound_ms": lm_res["bound_ms"],
+         "bound_by": lm_res["bound_by"], "library_ms": None,
+         "by_position": lm_res["by_position"], "tok_s": lm_res["tok_s"],
+         "decode_loop_tok_s": lm_res["decode_loop_tok_s"],
+         "device_busy_share": lm_res["device_busy_share"],
+         "generate_launches": lm_res["backends"], "agent": agent_res},
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",
@@ -2184,7 +2663,7 @@ def main() -> int:
          "max_abs_err": max(slot_attn["max_abs_err"], slot_attn["max_abs_err_slots"]),
          **slot_attn["times"][(4, 300)],
          "by_slots_and_position": {f"{n}x{p}": v for (n, p), v in slot_attn["times"].items()},
-         "serving": serving},
+         "serving": serving, "front_ends": front},
         {"name": "generate", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/generate.cu",
          "replaces": "qwen_tts_tpu/ops/generate_kernel.py:52",

@@ -395,12 +395,16 @@ class TTSEngine:
 
     async def synthesize_streaming(
         self, text: str, chunk_frames: Optional[int] = None,
+        frames: Optional[list] = None,
     ) -> AsyncGenerator[tuple[np.ndarray, int], None]:
         """Streaming synthesis: a first chunk of one frame, then
-        `chunk_frames`-frame chunks."""
+        `chunk_frames`-frame chunks. Each chunk's codec frames (int arrays
+        `[16]`) are appended to `frames` when it is given."""
         self.initialize()
-        for audio, _frames in self._generate_chunks(
+        for audio, chunk in self._generate_chunks(
                 text, chunk_frames or self.config.chunk_frames, with_audio=True):
+            if frames is not None:
+                frames.extend(chunk)
             yield audio, self.sample_rate
             await asyncio.sleep(0)
 
@@ -1076,7 +1080,8 @@ class TTSEngine:
         return device_launches(self.model_config.talker, self.device)
 
     def get_metrics(self) -> dict:
-        """Sample rate, talker cache position, frames kept, and the talker
+        """Sample rate, talker cache position, frames kept, the number of
+        the last request (which keys its sampling noise), and the talker
         and code-predictor decode steps run so far, frames computed past EOS
         or the cap included (each one decode-step launch on the "mega"
         backend, and one decode-attention launch per layer on the "pallas"
@@ -1084,6 +1089,7 @@ class TTSEngine:
         state = getattr(self, "_talker_state", None)
         return {
             "sample_rate": self.sample_rate,
+            "requests": getattr(self, "_requests", 0),
             "position": 0 if state is None else state.position,
             "frames_generated": getattr(self, "_frames_generated", 0),
             "talker_steps": getattr(self, "_talker_steps", 0),

@@ -34,6 +34,7 @@ array could be evicted and freed under a graph.
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import OrderedDict
 from contextlib import contextmanager
 from typing import Sequence
@@ -176,8 +177,9 @@ _MAX_POSITION_ARRAYS = 16
 class Owned:
     """The decode kernel's workspace and position arrays, owned by one
     caller (a runner of CUDA graphs, whose captured launches bake their
-    addresses in) and never evicted. While `active()`, every launch uses
-    them instead of the module's per-stream workspace and its bounded cache
+    addresses in) and never evicted. While `active()`, every launch of the
+    thread that activated them uses them (another thread's launches, such
+    as a second model's on its own stream, keep the module's) instead of the module's per-stream workspace and its bounded cache
     of position arrays. Nothing of them may be allocated during a capture:
     run the captured code once eagerly first, the widest decoder first
     (the workspace is sized by it): once `frozen` (the caller's first
@@ -198,13 +200,12 @@ class Owned:
         leaves them at the positions the launches ask for. Every other array
         whose values the host does not know is filled before its first
         launch, with the positions the host passes."""
-        global _OWNER
-        saved = _OWNER, self.carried
-        _OWNER, self.carried = self, frozenset(s.k_cache.data_ptr() for s in carried)
+        saved = _owner(), self.carried
+        _ACTIVE.owner, self.carried = self, frozenset(s.k_cache.data_ptr() for s in carried)
         try:
             yield self
         finally:
-            _OWNER, self.carried = saved
+            _ACTIVE.owner, self.carried = saved
 
     def forget(self) -> None:
         """Mark every array's values unknown (after a graph replay, which
@@ -219,7 +220,11 @@ class Owned:
         return 0 if self.workspace is None else _launch_count(self.workspace)
 
 
-_OWNER: Owned | None = None
+_ACTIVE = threading.local()   # .owner: the Owned active in this thread
+
+
+def _owner() -> Owned | None:
+    return getattr(_ACTIVE, "owner", None)
 
 
 def _not_capturing(what: str) -> None:
@@ -232,18 +237,22 @@ def workspace(cfg: DecoderConfig, dev: torch.device) -> torch.Tensor:
     """The kernels' scratch on `dev` for the current stream (or the active
     `Owned`'s): zeroed once (it holds the grid barrier's count, which each
     launch leaves set for the next) and kept, grown for a wider decoder.
-    Launches on one stream share it in stream order."""
+    Launches on one stream share it in stream order. `dev` without an
+    index is the current card (so "cuda" and "cuda:0" find one workspace)."""
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
     lib = load_library()
     n = lib.qtts_workspace_bytes(cfg.hidden_size, cfg.intermediate_size, cfg.num_q_heads,
                                  cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
-    if _OWNER is not None:
-        ws = _OWNER.workspace
+    owner = _owner()
+    if owner is not None:
+        ws = owner.workspace
         if ws is None or ws.numel() < n:
             _not_capturing("workspace")
-            if _OWNER.frozen:
+            if owner.frozen:
                 raise RuntimeError("decode_step: a wider decoder would grow the workspace "
                                    "that captured graphs hold")
-            ws = _OWNER.workspace = torch.zeros(n, dtype=torch.uint8, device=dev)
+            ws = owner.workspace = torch.zeros(n, dtype=torch.uint8, device=dev)
         return ws
     key = (dev.index, stream_of(dev))
     ws = _WORKSPACES.get(key)
@@ -254,12 +263,13 @@ def workspace(cfg: DecoderConfig, dev: torch.device) -> torch.Tensor:
 
 
 def _position_entry(state: DecodeState, dev: torch.device) -> list:
-    if _OWNER is not None:
+    owner = _owner()
+    if owner is not None:
         key = state.k_cache.data_ptr()
-        entry = _OWNER.arrays.get(key)
+        entry = owner.arrays.get(key)
         if entry is None:
             _not_capturing("position array")
-            entry = _OWNER.arrays[key] = [
+            entry = owner.arrays[key] = [
                 torch.zeros(1 + MAX_SECTIONS, dtype=torch.int32, device=dev), None]
         return entry
     key = (dev.index, stream_of(dev), state.k_cache.data_ptr())
@@ -284,7 +294,8 @@ def positions(state: DecodeState, values: Sequence[int], dev: torch.device):
     lib = load_library()
     entry = _position_entry(state, dev)
     values = tuple(int(v) for v in values)
-    if _OWNER is not None and state.k_cache.data_ptr() in _OWNER.carried:
+    owner = _owner()
+    if owner is not None and state.k_cache.data_ptr() in owner.carried:
         entry[1] = values
     if entry[1] != values:
         err = lib.qtts_set_positions(entry[0].data_ptr(), len(values), ints(values),

@@ -110,3 +110,76 @@ def test_engine_defaults_to_the_gpu():
     eng = TTSEngine(TTSConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.initialize()
+
+
+# ── the serving slice's copies and entry points ─────────────────────────────
+
+_SLICE = ("qwen_tts_tpu_torch.models.text_lm", "qwen_tts_tpu_torch.demos.local_agent",
+          "qwen_tts_tpu_torch.runtime.native", "qwen_tts_tpu_torch.serving._frames",
+          "qwen_tts_tpu_torch.serving._websocket", "qwen_tts_tpu_torch.serving.shared",
+          "qwen_tts_tpu_torch.serving.pipecat_tts", "qwen_tts_tpu_torch.serving.ws_server")
+
+
+def test_serving_slice_imports_with_every_optional_package_blocked():
+    """The GPU host has no JAX, `websockets`, `transformers`, `safetensors` or
+    `pipecat`: every module of the port imports without any of them."""
+    names = _import_all(*_JAX, "websockets", "transformers", "safetensors", "pipecat",
+                        "huggingface_hub")
+    assert set(_SLICE) <= set(names)
+
+
+def test_frames_and_audio_runtime_copies_equal_their_originals():
+    port, jax_pkg = REPO / "qwen_tts_tpu_torch", REPO / "qwen_tts_tpu"
+    assert (port / "serving" / "_frames.py").read_bytes() == \
+        (jax_pkg / "serving" / "_frames.py").read_bytes()
+    assert (port / "csrc" / "audio_runtime.c").read_bytes() == \
+        (REPO / "csrc" / "audio_runtime.c").read_bytes()
+
+
+def _code_after_docstring(path: Path) -> str:
+    src = path.read_text()
+    return src[src.index('"""', 3) + 3:]
+
+
+def test_native_copy_equals_jax_but_its_source_path_and_build_directory():
+    """`runtime/native.py` is JAX's line for line after the docstring, except
+    where it finds `csrc/audio_runtime.c` (the port's copy) and where it
+    builds (the port's git-ignored `_build/`, not the home directory)."""
+    ours = _code_after_docstring(REPO / "qwen_tts_tpu_torch" / "runtime" / "native.py")
+    theirs = _code_after_docstring(REPO / "qwen_tts_tpu" / "runtime" / "native.py")
+    src_ours = '_SRC = Path(__file__).resolve().parent.parent / "csrc" / "audio_runtime.c"'
+    src_theirs = '_SRC = Path(__file__).resolve().parent.parent.parent / "csrc" / "audio_runtime.c"'
+    cache_ours = '            cache = Path(__file__).resolve().parent.parent / "_build"'
+    cache_theirs = ('            cache = Path(os.environ.get(\n                "QWEN_TTS_TPU_CACHE",\n'
+                    '                os.path.expanduser("~/.cache/qwen_tts_tpu")))')
+    assert ours.count(src_ours) == 1 and ours.count(cache_ours) == 1
+    assert ours.replace(src_ours, "<src>").replace(cache_ours, "<cache>") == \
+        theirs.replace(src_theirs, "<src>").replace(cache_theirs, "<cache>")
+    from qwen_tts_tpu_torch.runtime import native
+
+    assert native._SRC == REPO / "qwen_tts_tpu_torch" / "csrc" / "audio_runtime.c"
+
+
+def test_text_lm_and_services_default_to_the_gpu(tmp_path):
+    import inspect
+
+    from qwen_tts_tpu_torch.core.config import tiny_test_config
+    from qwen_tts_tpu_torch.models import text_lm
+    from qwen_tts_tpu_torch.serving import pipecat_tts, shared
+
+    for fn in (text_lm.TextLM.__init__, text_lm.load_text_lm_weights,
+               text_lm.init_text_lm_weights):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert pipecat_tts.MegakernelTTSService(
+        model_config=tiny_test_config())._engine.config.device == "cuda"
+    assert pipecat_tts.ContinuousTTSService(warm=False)._shared._config.device == "cuda"
+    assert inspect.signature(shared.SharedBatcher.__init__).parameters["config"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run on it")
+    w = text_lm.init_text_lm_weights(0, tcfg.DecoderConfig(
+        num_layers=1, hidden_size=128, intermediate_size=128, num_q_heads=2, num_kv_heads=1,
+        vocab_size=64, max_seq_len=16), "cpu")
+    for call in (lambda: text_lm.TextLM(w), lambda: text_lm.init_text_lm_weights(0),
+                 lambda: text_lm.load_text_lm_weights(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
