@@ -171,27 +171,44 @@ is printed):
      seed: written as `model.safetensors` under the Qwen3 key names and
      read back by `load_text_lm_weights`, bit for bit; the decode-step
      kernel with its head at V = 151,936 against its plain version at
-     positions 0, 63, 300 and 2047 (phase 2's bars, logits cosine > 0.99,
+     positions 0, 63, 300 and 2047 (phase 2's bars, logits cosine > 0.999,
      the same argmax or a near tie), its device span and call time at 300
-     and 2047 beside the bound; `TextLM.generate` of 256 tokens from a
-     64-id prompt on "mega", "pallas" and "dense", bf16 and int8 KV, the
-     kernels' own launch counts exact (B1 one a step on "mega", B3 one a
-     layer a step on "pallas" with a bf16 cache), each backend's tokens
-     equal to "dense"'s or parting where the two tokens are within 2e-2 in
-     the dense run's own logits (replayed to that step; with an int8 cache
+     and 2047 beside the bound; the same for each quantized form (int8,
+     int4-g128, mixed, each with its int8 tied head and f32 scales) on a
+     bf16 and an int8 cache, held to phase 9's logits bar for quantized
+     forms as well (max |diff| <= 2e-2 x max(1, max |logit|)), with its
+     kernel and plain time at 300;
+     `TextLM.generate` of 256 tokens from a 64-id prompt, the prefill and
+     each chunk one CUDA-graph replay (the graphs captured by a first
+     run), on "mega", "pallas" and "dense" with a bf16 cache, on "mega"
+     and "dense" with an int8 one (there "pallas" takes the plain
+     attention, as in JAX: it is "dense"), and on "mega" and "dense" for
+     each quantized form: the kernels' own launch
+     counts exact (B1 one a step on "mega", in the LM's graphs' workspace,
+     B3 one a layer a step on "pallas" with a bf16 cache), one replay for
+     the prefill and one a chunk, each backend's tokens equal to
+     "dense"'s or parting where the two tokens are within 2e-2 in the
+     dense run's own logits (replayed to that step; with an int8 cache
      2e-2 x max(1, max |logit|), phase 9's bar for int8-cache logits);
-     `generate_stream` equal to `generate` at chunks 1, 16 and
-     32; tok/s and the decode loop's device busy share;
+     the graph path's tokens equal to the same steps enqueued op by op
+     (256 on "mega", 64 on "pallas" and "dense"); `generate_stream`
+     equal to `generate` at chunks 1, 16 and 32; on "mega" and "pallas" a
+     1-id prompt after a stream equal to eager steps, and two streams
+     interleaved with a `generate` between their chunks, each equal to its
+     prompt alone; the prefill's graph and its ops enqueued one by one, to
+     the first token on the host; tok/s of one graph `generate` and the
+     device's busy share of that run (CUDA events around its replays);
  18. the agent turn (`demos/local_agent.py::agent_turn`), the phase-17 LM
-     on "mega" and phase 3's engine on one card: two turns of 3 sentences
-     of 10 words, LM chunk 16, under a deadline that fails the run; LM
-     first-sentence latency, first audio after it, user to first audio
-     and the turn's RTF; the decode-step kernel's own counts, in the LM's
-     workspace equal to the LM's decode steps and in the engine's equal to
-     its talker and code-predictor steps; each spoken sentence's codes
-     equal to the same sentence spoken alone at its request number; then
-     255 LM steps beside one TTS request from two threads against each
-     alone (whether the two models' persistent launches serialize);
+     on "mega" (its graphs captured by `TextLM.warm` first) and phase 3's
+     engine on one card: two turns of 3 sentences of 10 words, LM chunk
+     16, under a deadline that fails the run; LM first-sentence latency,
+     first audio after it, user to first audio and the turn's RTF; the
+     decode-step kernel's own counts, in the LM's graphs' workspace equal
+     to the LM's decode steps and in the engine's equal to its talker and
+     code-predictor steps; each spoken sentence's codes equal to the same
+     sentence spoken alone at its request number; then 255 LM steps
+     beside one TTS request from two threads against each alone
+     (whether the two models' persistent launches serialize);
  19. the serving front-ends on phase 16's bf16 batcher (S = 1024, 4
      slots) through `SharedBatcher`: the WebSocket server
      (`serving/ws_server.py` on the port's own framing) on 127.0.0.1 with
@@ -201,10 +218,21 @@ is printed):
      the first audio frame (its terminal counts exactly the frames seen,
      then a normal request on the same connection); both Pipecat services
      through their frame sequence on the stand-ins (and a hang-up: no
-     Stopped frame); the decode-attention kernel's own count > 0. Under a
-     deadline too.
+     Stopped frame); the decode-attention kernel's own count > 0; the
+     native audio runtime built by the server's `start()`, before the
+     first request (ROADMAP C.1). Under a deadline too;
+ 20. the per-frame generator (`TTSConfig(fused_chunks=False)`, JAX's
+     `_generate_codec_frames`) on phase 3's weights: one request, its
+     frames past EOS or the cap 0 (talker steps = 1 + frames, 14
+     code-predictor steps a frame), the decode-step kernel's own count
+     equal to those steps, its codes equal to the graph path's at the same
+     request number; then each TTS demo's `main` once on phase 3's engine
+     (`demos/tts.py` writing a wav into a temporary directory, `pipeline.py`,
+     `voice_agent.py --text-only` on two lines) and `ws_client.py` (3
+     clients, then `--barge-in`) against the WebSocket server on phase
+     16's batcher.
 The next-to-last line is a JSON object describing the kernels, one entry
-per quantized form and one for the text LM's form of the decode step as
+per quantized form and one for each text-LM form of the decode step as
 well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
 package are blocked for the whole run: the port must not need them.
 """
@@ -242,7 +270,7 @@ STEP_POSITIONS = (0, 1, 300, 4095, 8191)    # talker, decode step vs plain
 ATTN_LAYER = 27
 # Phase 15: B3 on device positions, one slot; a cache of 8192 rows is full at 8192
 ATTN_SLOT_POSITIONS = (0, 1, 63, 64, 300, 4095, 8191, 8192)
-RING_GRAPHS = 3      # chunk graphs of the engine's ring (engine/chunk_graphs.py RING)
+RING_GRAPHS = 3      # chunk graphs of the engine's ring (runtime/chunk_graphs.py RING)
 # Phase 16: continuous batching as benchmarks/bench_continuous.py serves it
 SERVE_SEQ, SERVE_SLOTS, SERVE_REQUESTS, SERVE_GAP_S = 1024, 4, 8, 0.15
 GEN_STEPS = 64
@@ -508,6 +536,7 @@ def compare_kernel(cfg, w, pos: int, with_head: bool, gen, mrope: bool, kv8: boo
         tie = float(top2[0] - top2[1]) < 1e-3 * float(logits_r.abs().max())
         res["argmax_equal"] = int(logits_k.argmax()) == int(logits_r.argmax())
         res["logits_max_abs"] = float((logits_k - logits_r).abs().max())
+        res["logits_ref_max_abs"] = float(logits_r.abs().max())
         res["logits_cos"] = _cos(logits_k, logits_r)
         assert res["argmax_equal"] or tie, res
         if quant_bar:
@@ -1878,6 +1907,9 @@ LM_POSITIONS = (0, 63, 300, 2047)   # phase 17: B1 at the text LM's width agains
 LM_TIMED = (300, 2047)
 LM_TOKENS = 256                     # from the 64-id prompt of demos/local_agent.py
 LM_CHUNKS = (1, 16, 32)
+LM_FORMS = ("int8", "int4", "mixed")  # the quantized text-LM forms, each with its int8 head
+LM_EAGER_TOKENS = 64                # the graph path against eager steps on "pallas", "dense"
+TEXT_LM_ONE_ID = 9707               # a 1-id prompt (its prefill is a single-token step)
 TIE_GAP = 2e-2                      # two logits this close are a near tie (bf16 cache)
 AGENT_TURNS, AGENT_SENTENCES, AGENT_WORDS, AGENT_CHUNK = 2, 3, 10, 16
 AGENT_DEADLINE_S = 300              # phase 18 fails the run past this
@@ -1897,10 +1929,14 @@ def _lm_leaves(w):
 def _parting(cfg, w, prompt, a, b, kv: str) -> dict:
     """Where a backend's greedy stream `a` parts from the dense one `b` of
     the same prompt, and how near a tie the two tokens were in the dense
-    run's own logits there (replayed: the prompt's prefill, then dense
-    steps on b[:i]). The bar: TIE_GAP; with an int8 cache TIE_GAP * max(1,
-    max |logit|), phase 9's bar for int8-cache logits of kernel against
-    plain (two quantized rows a rounding apart move the logits by that)."""
+    run's own logits there (replayed as `TextLM` ran it: the prompt's
+    prefill, then dense steps on b[:i] at the state's device position).
+    The bar: TIE_GAP; with an int8 cache or quantized weights TIE_GAP *
+    max(1, max |logit|), phase 9's bar for the logits of kernel against
+    plain in those forms (two quantized rows a rounding apart move the
+    logits by that; and on quantized weights "dense" multiplies by the
+    weights dequantized to bf16, the kernel by the int8 values and their
+    scales, as in JAX)."""
     import torch
     from qwen_tts_tpu_torch.models.decoder import (
         decode_step,
@@ -1914,14 +1950,16 @@ def _parting(cfg, w, prompt, a, b, kv: str) -> dict:
         return {"equal": True}
     dev = w.embed.device
     dtype = torch.int8 if kv == "int8" else torch.bfloat16
-    state, _tok, normed = prefill(cfg, w, init_state(cfg, dev, dtype),
+    state, _tok, normed = prefill(cfg, w, init_state(cfg, dev, dtype, device_pos=True),
                                   w.embed[torch.tensor(list(prompt), device=dev)])
     for t in b[:i]:
         state, _tok, normed = decode_step(cfg, w, state, torch.full((1,), t, device=dev),
                                           attn_impl="dense")
     logits = lm_head_logits(w, normed[None])[0]
     gap = float(logits[b[i]] - logits[a[i]])
-    bar = TIE_GAP * (1.0 if kv == "bf16" else max(1.0, float(logits.abs().max())))
+    quantized = getattr(w, "lm_head_s", None) is not None
+    bar = TIE_GAP * (1.0 if kv == "bf16" and not quantized
+                     else max(1.0, float(logits.abs().max())))
     return {"equal": False, "first_difference": i, "tokens": [a[i], b[i]], "gap": gap,
             "bar": bar, "dense_choice_replayed": int(logits.argmax()) == b[i],
             "near_tie": 0 <= gap < bar}
@@ -1934,8 +1972,10 @@ def text_lm_phase(card):
     import torch
 
     from qwen_tts_tpu_torch.core.safetensors import save_file
+    from qwen_tts_tpu_torch.core.weights import QUANTIZERS
     from qwen_tts_tpu_torch.demos.local_agent import PROMPT_BUCKET, encode_prompt
     from qwen_tts_tpu_torch.models import text_lm
+    from qwen_tts_tpu_torch.models.text_lm import GENERATE_CHUNK
     from qwen_tts_tpu_torch.models.decoder import init_state
     from qwen_tts_tpu_torch.ops import attention, decode_step
     from qwen_tts_tpu_torch.runtime.generate import generate_tokens
@@ -1963,7 +2003,7 @@ def text_lm_phase(card):
     for pos in LM_POSITIONS:
         r, c = compare_kernel(cfg, w, pos, True, gen, mrope=False)
         print("text LM kernel vs plain", json.dumps(r))
-        assert r["logits_cos"] > 0.99, r
+        assert r["logits_cos"] > 0.999, r
         errs.append(max(r["normed_max_abs"], r["logits_max_abs"]))
         ctx = c if pos == 300 else ctx
         del c
@@ -1985,41 +2025,126 @@ def text_lm_phase(card):
     print(f"text LM step (pos 300, V={cfg.vocab_size}): kernel {res['ms']:.4f} ms, plain "
           f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}) {card}")
 
-    # TextLM on the three backends, bf16 and int8 KV
+    # the quantized forms: B1 with the int8 head at V = 151,936 against plain
+    res["forms"], qweights = {}, {}
+    for form in LM_FORMS:
+        qw = QUANTIZERS[form](w)                      # the tied head quantized too
+        assert qw.lm_head.dtype == torch.int8 and qw.lm_head.is_contiguous()
+        assert qw.lm_head_s.shape == (1, cfg.vocab_size)
+        r, errs, ctx = {"head_bytes": qw.lm_head.numel() + qw.lm_head_s.numel() * 4}, [], None
+        for kv8 in (False, True):
+            for pos in LM_POSITIONS:
+                c_res, c = compare_kernel(cfg, qw, pos, True, gen, mrope=False, kv8=kv8,
+                                          quant_bar=True)
+                print(f"text LM [{form}] kernel vs plain", json.dumps(c_res))
+                assert c_res["logits_cos"] > 0.999, c_res
+                errs.append(max(c_res["normed_max_abs"], c_res["logits_max_abs"]))
+                ctx = c if (pos == 300 and not kv8) else ctx
+                del c
+        r["max_abs_err"] = max(errs)
+        r["ms"], r["plain_ms"] = time_steps(cfg, qw, ctx, True, 30)
+        del ctx
+        r["by_position"] = {}
+        for kv8 in (False, True):
+            for pos in LM_TIMED:
+                state = random_state(cfg, pos, gen, kv8)
+                embed = torch.randn(cfg.hidden_size, generator=gen, device="cuda")
+                step = lambda: decode_step.megakernel_forward(cfg, qw, state, embed)  # noqa: E731
+                t = {"device_span_ms": _span_ms(step, 20), "call_ms": _time_ms(step, 20)}
+                t["bound_ms"], t["bound_by"] = _bound_ms(*step_cost(cfg, qw, pos, True, kv8))
+                r["by_position"][f"{pos}{'/kv8' if kv8 else ''}"] = t
+                del state
+        r["bound_ms"] = r["by_position"]["300"]["bound_ms"]
+        r["bound_by"] = r["by_position"]["300"]["bound_by"]
+        print(f"text LM [{form}] step (pos 300, bf16 cache): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); by "
+              f"position: {json.dumps(r['by_position'])} {card}")
+        res["forms"][form], qweights[form] = r, qw
+
+    # TextLM on the three backends, bf16 and int8 KV, each prefill and chunk
+    # one graph replay: the first `generate` captures, the second is counted
     prompt = encode_prompt(TEXTS[1])
     assert len(prompt) == PROMPT_BUCKET
+    n_chunks = len(range(1, LM_TOKENS, GENERATE_CHUNK))
     runs, launches = {}, {}
+
+    def counted(lm, label):
+        lm.generate(prompt, LM_TOKENS)                # captures its graphs
+        torch.cuda.synchronize()
+        d0, a0, r0 = lm.decode_launches(), attention.device_launches(dev), lm._graphs.replays
+        t0 = time.perf_counter()
+        out = lm.generate(prompt, LM_TOKENS)
+        wall = time.perf_counter() - t0
+        launches[label] = {"decode_step": lm.decode_launches() - d0,
+                           "decode_attention": attention.device_launches(dev) - a0,
+                           "graph_replays": lm._graphs.replays - r0,
+                           "graphs": len(lm._graphs.graphs), "wall_s": wall,
+                           "tok_s": LM_TOKENS / wall}
+        return out
+
     for kv in ("bf16", "int8"):
-        for impl in ("mega", "pallas", "dense"):
+        # on an int8 cache "pallas" takes the plain attention (as in JAX): "dense"
+        for impl in ("mega", "pallas", "dense") if kv == "bf16" else ("mega", "dense"):
             lm = text_lm.TextLM(w, cfg, attn_impl=impl, kv_cache=kv)
-            torch.cuda.synchronize()
-            d0, a0 = decode_step.device_launches(cfg, dev), attention.device_launches(dev)
-            t0 = time.perf_counter()
-            runs[(impl, kv)] = lm.generate(prompt, LM_TOKENS)
-            wall = time.perf_counter() - t0
-            launches[f"{impl}/{kv}"] = {
-                "decode_step": decode_step.device_launches(cfg, dev) - d0,
-                "decode_attention": attention.device_launches(dev) - a0, "wall_s": wall}
+            runs[(impl, kv)] = counted(lm, f"{impl}/{kv}")
+            got = launches[f"{impl}/{kv}"]
             want_b1 = LM_TOKENS - 1 if impl == "mega" else 0
             want_b3 = cfg.num_layers * (LM_TOKENS - 1) if impl == "pallas" and kv == "bf16" else 0
-            assert launches[f"{impl}/{kv}"]["decode_step"] == want_b1, launches
-            assert launches[f"{impl}/{kv}"]["decode_attention"] == want_b3, launches
+            assert got["decode_step"] == want_b1 and got["decode_attention"] == want_b3, launches
+            assert got["graph_replays"] == 1 + n_chunks and got["graphs"] == 3, launches
+            del lm
     partings = {f"{impl}/{kv}": _parting(cfg, w, prompt, runs[(impl, kv)], runs[("dense", kv)],
                                          kv)
-                for kv in ("bf16", "int8") for impl in ("mega", "pallas")}
+                for impl, kv in (("mega", "bf16"), ("pallas", "bf16"), ("mega", "int8"))}
+    for form, qw in qweights.items():
+        label = f"{form} weights"
+        for impl in ("mega", "dense"):
+            lm = text_lm.TextLM(qw, cfg, attn_impl=impl)
+            runs[(impl, label)] = counted(lm, f"{impl}/{label}")
+            got = launches[f"{impl}/{label}"]
+            assert got["decode_step"] == (LM_TOKENS - 1 if impl == "mega" else 0), launches
+            del lm
+        partings[f"mega/{label}"] = _parting(cfg, qw, prompt, runs[("mega", label)],
+                                             runs[("dense", label)], "bf16")
     res.update(backends=launches, partings_from_dense=partings)
-    print(f"text LM generate ({LM_TOKENS} tokens), tokens against dense: {json.dumps(partings)}; "
-          f"launches and walls: {json.dumps(launches)} {card}")
+    print(f"text LM generate ({LM_TOKENS} tokens, CUDA graphs), tokens against dense: "
+          f"{json.dumps(partings)}; launches, replays and walls: {json.dumps(launches)} {card}")
     assert all(p["equal"] or p["near_tie"] for p in partings.values()), partings
+    del qweights
+
+    # the graph path against the same steps enqueued op by op, bit for bit
+    eager = {"mega": _eager_tokens(cfg, w, prompt, LM_TOKENS, "mega")}
+    for impl in ("pallas", "dense"):
+        eager[impl] = _eager_tokens(cfg, w, prompt, LM_EAGER_TOKENS, impl)
+    res["graphs_equal_eager"] = {impl: toks == runs[(impl, "bf16")][:len(toks)]
+                                 for impl, toks in eager.items()}
+    print(f"text LM graphs against eager steps (bf16, {LM_TOKENS} tokens on mega, "
+          f"{LM_EAGER_TOKENS} on pallas and dense): {json.dumps(res['graphs_equal_eager'])}")
+    assert all(res["graphs_equal_eager"].values()), res["graphs_equal_eager"]
     lm = text_lm.TextLM(w, cfg, attn_impl="mega")
     ref = runs[("mega", "bf16")]
     for chunk in LM_CHUNKS:
         streamed = [t for b in lm.generate_stream(prompt, LM_TOKENS, chunk=chunk) for t in b]
         assert streamed == ref, chunk
     res["stream_equals_generate"] = list(LM_CHUNKS)
+    res["streams"] = lm_streams(cfg, w, prompt, runs)
 
-    # tok/s, and the decode loop's device span with the host ahead over its wall
-    state0, first, _ = text_lm._prefill_ids(cfg, w, torch.tensor(prompt, device=dev))
+    # the prefill: its graph against the plain ops enqueued one by one, and
+    # tok/s; the decode loop's device span with the host ahead over its wall
+    ids = torch.tensor(prompt, device=dev)
+    eager_prefill = lambda: int(text_lm._prefill_ids(cfg, w, ids)[1])  # noqa: E731
+    graph_prefill = lambda: lm._prefill(prompt, ())                    # noqa: E731
+    for f in (eager_prefill, graph_prefill):
+        f()
+    pre = {"eager_ms": [], "graph_ms": []}
+    for _ in range(5):
+        for key, f in (("eager_ms", eager_prefill), ("graph_ms", graph_prefill)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            pre[key].append((time.perf_counter() - t0) * 1e3)
+    res["prefill"] = {k: sorted(v)[len(v) // 2] for k, v in pre.items()}
+    state0, first, _ = text_lm._prefill_ids(cfg, w, ids)
     loop = lambda: generate_tokens(cfg, w, _clone(state0), first, LM_TOKENS - 1,  # noqa: E731
                                    attn_impl="mega")[1]
     loop().tolist()
@@ -2028,18 +2153,96 @@ def text_lm_phase(card):
     loop().tolist()
     loop_wall = time.perf_counter() - t0
     span = _span_ms(loop, 1) / 1e3
-    t0 = time.perf_counter()
-    lm.generate(prompt, LM_TOKENS)
-    gen_wall = time.perf_counter() - t0
+    # one graph `generate`: its wall, and the device's busy time in that
+    # same run (CUDA events around each replay on the graphs' stream; the
+    # host waits for each replay before it enqueues the next, so they do
+    # not overlap)
+    g, replays, real_replay = lm._graphs, [], lm._graphs.replay
+
+    def timed_replay(key, body):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record(g.stream)
+        real_replay(key, body)
+        ev[1].record(g.stream)
+        replays.append(ev)
+
+    g.replay = timed_replay
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.generate(prompt, LM_TOKENS)
+        gen_wall = time.perf_counter() - t0
+    finally:
+        del g.replay
+    torch.cuda.synchronize()
+    busy = sum(a.elapsed_time(b) for a, b in replays) / 1e3
+    assert len(replays) == 1 + n_chunks, len(replays)
     res.update(tok_s=LM_TOKENS / gen_wall, generate_wall_s=gen_wall,
+               generate_device_busy_s=busy, device_busy_share=busy / gen_wall,
                decode_loop_tok_s=(LM_TOKENS - 1) / loop_wall, decode_loop_wall_s=loop_wall,
-               decode_loop_device_span_s=span, device_busy_share=span / loop_wall,
+               decode_loop_device_span_s=span, decode_loop_busy_share=span / loop_wall,
                device_span_ms_per_step=span * 1e3 / (LM_TOKENS - 1))
     print(f"text LM [mega, bf16]: {res['tok_s']:.1f} tok/s ({LM_TOKENS} tokens from a "
-          f"{len(prompt)}-id prompt, prefill included); decode loop "
-          f"{res['decode_loop_tok_s']:.1f} tok/s, {res['device_span_ms_per_step']:.4f} ms a step "
-          f"on the device, device busy share {res['device_busy_share']:.4f} {card}")
+          f"{len(prompt)}-id prompt, prefill included, CUDA graphs), the device busy "
+          f"{res['device_busy_share']:.4f} of that run's wall ({len(replays)} replays); the "
+          f"eager decode loop {res['decode_loop_tok_s']:.1f} tok/s, "
+          f"{res['device_span_ms_per_step']:.4f} ms a step on the device (its span with the "
+          f"host ahead), {res['decode_loop_busy_share']:.4f} of its own wall; prefill of "
+          f"{len(prompt)} ids: graph "
+          f"{res['prefill']['graph_ms']:.3f} ms, eager {res['prefill']['eager_ms']:.3f} ms "
+          f"(medians of 5, first token on the host) {card}")
     return res, w
+
+
+def lm_streams(cfg, w, prompt, runs) -> dict:
+    """On "mega" and "pallas" (bf16 cache): a 1-id prompt's `generate` after
+    a stream (its prefill is a single-token step, on "pallas" at the state's
+    device position) equal to the same steps enqueued op by op; then two
+    streams interleaved chunk by chunk, a `generate` between their chunks,
+    each equal to its prompt run alone (the parked and restored state)."""
+    from qwen_tts_tpu_torch.models import text_lm
+
+    one, n = [TEXT_LM_ONE_ID], LM_EAGER_TOKENS
+    out = {}
+    for impl in ("mega", "pallas"):
+        lm = text_lm.TextLM(w, cfg, attn_impl=impl)
+        lm.generate(prompt, n)
+        alone = lm.generate(one, n)
+        eager = _eager_tokens(cfg, w, one, n, impl)
+        a = lm.generate_stream(prompt, n, chunk=16)
+        b = lm.generate_stream(one, n, chunk=8)
+        got_a, got_b = next(a), next(b)
+        between = lm.generate(prompt, n)
+        for x, y in zip(a, b):
+            got_a, got_b = got_a + x, got_b + y
+        got_a += [t for x in a for t in x]
+        got_b += [t for y in b for t in y]
+        ref = runs[(impl, "bf16")][:n]
+        out[impl] = {"one_id_equal_eager": alone == eager,
+                     "interleaved_equal_alone": got_a == ref and got_b == alone,
+                     "generate_between_equal": between == ref}
+        del lm
+    print(f"text LM streams: a 1-id prompt after a stream against eager steps, two streams "
+          f"interleaved with a generate between their chunks against each alone "
+          f"({n} tokens): {json.dumps(out)}")
+    assert all(all(v.values()) for v in out.values()), out
+    return out
+
+
+def _eager_tokens(cfg, w, prompt, n: int, impl: str) -> list:
+    """The text LM's n greedy ids with every op enqueued one by one (no
+    graph): the prefill and steps `TextLM` captures, on the same kind of
+    state (device positions on "pallas" and "dense")."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.decoder import init_state, prefill
+    from qwen_tts_tpu_torch.runtime.generate import generate_tokens
+
+    dev = w.embed.device
+    state = init_state(cfg, dev, device_pos=impl != "mega")
+    state, first, _ = prefill(cfg, w, state, w.embed[torch.tensor(list(prompt), device=dev)])
+    _, toks = generate_tokens(cfg, w, state, first, n - 1, attn_impl=impl)
+    return [int(first)] + toks.tolist()
 
 
 def _speak(eng, text: str, request: int | None = None) -> list:
@@ -2064,7 +2267,12 @@ def agent_phase(w, eng, card) -> dict:
     import torch
 
     from qwen_tts_tpu_torch.demos import local_agent as agent
-    from qwen_tts_tpu_torch.models.text_lm import TEXT_LM_CONFIG, TextLM, _prefill_ids
+    from qwen_tts_tpu_torch.models.text_lm import (
+        TEXT_LM_CONFIG,
+        TextLM,
+        _prefill_ids,
+        chunk_lengths,
+    )
     from qwen_tts_tpu_torch.ops import decode_step
     from qwen_tts_tpu_torch.runtime.generate import generate_tokens
 
@@ -2075,13 +2283,16 @@ def agent_phase(w, eng, card) -> dict:
     try:
         lm = TextLM(w, cfg, attn_impl="mega")
         n_tok = AGENT_SENTENCES * AGENT_WORDS
-        list(lm.generate_stream(agent.encode_prompt("warm"), n_tok, chunk=AGENT_CHUNK))
+        t0 = time.perf_counter()
+        lm.warm(agent.PROMPT_BUCKET, chunk_lengths(n_tok, AGENT_CHUNK))
+        warm_s = time.perf_counter() - t0
         _reset_launches()
         torch.cuda.synchronize()
-        # B1 counts its launches in each workspace: the LM's (its thread's
-        # stream) and the engine's graphs'
-        lm_b1 = lambda: decode_step.device_launches(cfg, dev)  # noqa: E731
+        # B1 counts its launches in each workspace: the LM's graphs' and the
+        # engine's graphs'
+        lm_b1 = lm.decode_launches
         l0, e0, m0, s0 = lm_b1(), eng.decode_launches(), eng.get_metrics(), lm.steps
+        r0 = lm._graphs.replays
         turns = []
         for i in range(AGENT_TURNS):
             turns.append(asyncio.run(agent.agent_turn(
@@ -2093,7 +2304,8 @@ def agent_phase(w, eng, card) -> dict:
         steps = {"lm": lm.steps - s0, "talker": m1["talker_steps"] - m0["talker_steps"],
                  "code_predictor": m1["cp_steps"] - m0["cp_steps"]}
         res = {"decode_step_launches": {"lm": lm_b1() - l0, "engine": eng.decode_launches() - e0},
-               "decode_steps": steps,
+               "decode_steps": steps, "lm_warm_s": warm_s,
+               "lm_graph_replays": lm._graphs.replays - r0, "lm_graphs": len(lm._graphs.graphs),
                "turns": [{"first_sentence_ms": t.first_sentence_s * 1e3,
                           "first_audio_after_sentence_ms":
                               (t.first_audio_s - t.first_sentence_s) * 1e3,
@@ -2104,6 +2316,7 @@ def agent_phase(w, eng, card) -> dict:
         print(f"agent turn on one card: {json.dumps(res)} {card}")
         b1 = res["decode_step_launches"]
         assert b1["lm"] == steps["lm"] > 0, res
+        assert res["lm_graphs"] == 1 + len(chunk_lengths(n_tok, AGENT_CHUNK)), res
         assert b1["engine"] == steps["talker"] + steps["code_predictor"] > 0, res
         assert all(t.spoken == AGENT_SENTENCES and t.first_audio_s for t in turns), res
 
@@ -2134,15 +2347,15 @@ def agent_phase(w, eng, card) -> dict:
         _speak(eng, TEXTS[1])
         th.join()
         t_both = time.perf_counter() - t0
-        ws_lm = decode_step.workspace(cfg, dev).data_ptr()
-        ws_eng = eng._graphs.owned.workspace.data_ptr()
+        ws = {decode_step.workspace(cfg, dev).data_ptr(),
+              lm._graphs.owned.workspace.data_ptr(), eng._graphs.owned.workspace.data_ptr()}
         res["concurrency"] = {"lm_alone_s": t_lm, "tts_alone_s": t_tts, "both_s": t_both,
                               "both_over_sum": t_both / (t_lm + t_tts),
                               "both_over_max": t_both / max(t_lm, t_tts),
-                              "workspaces_distinct": ws_lm != ws_eng}
+                              "workspaces_distinct": len(ws) == 3}
         print(f"agent: {LM_TOKENS - 1} LM steps on the default stream beside one TTS request "
               f"on the graphs' stream: {json.dumps(res['concurrency'])} {card}")
-        assert ws_lm != ws_eng
+        assert len(ws) == 3
     finally:
         watchdog.cancel()
     return res
@@ -2155,6 +2368,7 @@ def front_ends_phase(batcher, eng, phase16_p50_ms: float, card) -> dict:
     import torch
 
     from qwen_tts_tpu_torch.ops import attention
+    from qwen_tts_tpu_torch.runtime import native
     from qwen_tts_tpu_torch.serving import pipecat_tts as svc
     from qwen_tts_tpu_torch.serving._websocket import connect
     from qwen_tts_tpu_torch.serving.shared import SharedBatcher
@@ -2220,7 +2434,12 @@ def front_ends_phase(batcher, eng, phase16_p50_ms: float, card) -> dict:
                 "next_bytes": nb2, "next_frames": fr2}
 
     async def drive():
+        tried = native._TRIED
         await server.start()
+        # the native audio runtime is built by `start()`, before the first
+        # request: its first-use compile stalled the first burst (ROADMAP C.1)
+        runtime["built_before_start"], runtime["built_by_start"] = tried, native._TRIED
+        runtime["available"] = native.native_available()
         try:
             uri = f"ws://{server.host}:{server.port}"
             clients = asyncio.gather(*[client(uri, t, f"c{i}") for i, t in enumerate(texts)])
@@ -2229,12 +2448,15 @@ def front_ends_phase(batcher, eng, phase16_p50_ms: float, card) -> dict:
         finally:
             await server.stop()
 
+    runtime = {}
     try:
         got, pong, refused, barge = asyncio.run(drive())
         first = sorted(g["first_audio_ms"] for g in got)
         res = {"clients": got, "first_audio_p50_ms": first[len(first) // 2],
+               "native_runtime": runtime,
                "phase16_first_audio_p50_ms": phase16_p50_ms, "pong": pong,
                "refused": refused, "barge_in": barge}
+        assert runtime["built_by_start"], runtime
         assert all(g["bytes"] == 2 * g["samples"] > 0 and g["frames"] == g["chunks"]
                    for g in got), got
         assert pong["type"] == "pong" and pong["slots"] == FRONT_CLIENTS, pong
@@ -2279,6 +2501,82 @@ def front_ends_phase(batcher, eng, phase16_p50_ms: float, card) -> dict:
     print(f"front ends: WebSocket first audio p50 {res['first_audio_p50_ms']:.1f} ms over the "
           f"socket ({FRONT_CLIENTS} clients at once), the batcher's own in phase 16 "
           f"{phase16_p50_ms:.1f} ms (8 requests 150 ms apart) {card}")
+    return res
+
+
+def generator_and_demos_phase(eng, batcher, card) -> dict:
+    """Phase 20 (see the module docstring)."""
+    import io
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.demos import pipeline, tts, voice_agent, ws_client
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+    from qwen_tts_tpu_torch.ops import decode_step
+    from qwen_tts_tpu_torch.serving.shared import SharedBatcher
+    from qwen_tts_tpu_torch.serving.ws_server import TTSWebSocketServer
+
+    res = {}
+    geng = TTSEngine(TTSConfig(fused_chunks=False))
+    geng.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
+    mc = geng.model_config
+    _speak(geng, TEXTS[0])                                  # warm
+    m0 = geng.get_metrics()
+    torch.cuda.synchronize()
+    d0 = decode_step.device_launches(mc.talker, geng.device)
+    t0 = time.perf_counter()
+    gen_frames = _speak(geng, TEXTS[1], 300)
+    wall = time.perf_counter() - t0
+    m1 = geng.get_metrics()
+    launches = decode_step.device_launches(mc.talker, geng.device) - d0
+    graph_frames = _speak(eng, TEXTS[1], 300)
+    steps = {"talker": m1["talker_steps"] - m0["talker_steps"],
+             "code_predictor": m1["cp_steps"] - m0["cp_steps"]}
+    n = len(gen_frames)
+    res["generator"] = {"frames": n, "frames_past_eos": steps["talker"] - 1 - n,
+                        "steps": steps, "decode_step_launches": launches, "wall_s": wall,
+                        "codes_equal_graph_path": n == len(graph_frames) and bool(
+                            np.array_equal(np.stack(gen_frames), np.stack(graph_frames)))}
+    print(f"per-frame generator (fused_chunks=False) on phase 3's weights: "
+          f"{json.dumps(res['generator'])} {card}")
+    g = res["generator"]
+    assert g["frames_past_eos"] == 0 and steps["code_predictor"] == 14 * n, g
+    assert launches == steps["talker"] + steps["code_predictor"] and g["codes_equal_graph_path"], g
+    del geng
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "demo_tts.wav")
+        res["tts"] = tts.main(["--text", TEXTS[1], "--output", out], engine=eng)
+        n = res["tts"]["samples"]
+        assert n > 0 and os.path.getsize(out) == 44 + 2 * n, res["tts"]
+    res["pipeline"] = pipeline.main([], engine=eng)
+    assert res["pipeline"]["chunks"] >= 2 and res["pipeline"]["samples"] > 0
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(f"{TEXTS[0]}\n{TEXTS[1]}\n\n")
+    try:
+        res["voice_agent"] = voice_agent.main(["--text-only"], engine=eng)
+    finally:
+        sys.stdin = stdin
+    assert [r["text"] for r in res["voice_agent"]] == [TEXTS[0], TEXTS[1]]
+    server = TTSWebSocketServer(SharedBatcher(batcher=batcher), port=0)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    asyncio.run_coroutine_threadsafe(server.start(), loop).result(timeout=120)
+    try:
+        res["ws_client"] = ws_client.main(["--port", str(server.port), "--clients", "3"])
+        res["ws_client_barge_in"] = ws_client.main(["--port", str(server.port),
+                                                    "--barge-in"])["barge_in"]
+    finally:
+        asyncio.run_coroutine_threadsafe(server.stop(), loop).result(timeout=120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=120)
+    assert all(c["samples"] > 0 for c in res["ws_client"]["clients"]), res["ws_client"]
+    assert res["ws_client_barge_in"]["terminal"]["type"] == "cancelled"
+    print(f"demos on the card: {json.dumps(res, default=str)} {card}")
     return res
 
 
@@ -2616,9 +2914,14 @@ def main() -> int:
 
     # ── phase 19: the serving front-ends on phase 16's batcher ──
     front = front_ends_phase(batcher, eng, serving["bf16"]["first_audio_p50_ms"], card)
-    del batcher
 
     _phase_done(19)
+
+    # ── phase 20: the per-frame generator and the TTS demos ──
+    demos = generator_and_demos_phase(eng, batcher, card)
+    del batcher
+
+    _phase_done(20)
     assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
                                                  *gerr.values(), slot_attn["max_abs_err"],
                                                  slot_attn["max_abs_err_slots"]])
@@ -2645,7 +2948,19 @@ def main() -> int:
          "by_position": lm_res["by_position"], "tok_s": lm_res["tok_s"],
          "decode_loop_tok_s": lm_res["decode_loop_tok_s"],
          "device_busy_share": lm_res["device_busy_share"],
-         "generate_launches": lm_res["backends"], "agent": agent_res},
+         "generate_launches": lm_res["backends"], "prefill": lm_res["prefill"],
+         "graphs_equal_eager": lm_res["graphs_equal_eager"], "agent": agent_res},
+        *[{"name": f"decode_step[text LM {q}: V=151936, int8 tied head]", "route": "cuda",
+           "source": "qwen_tts_tpu_torch/csrc/decode_step.cu",
+           "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
+           "launches": lm_res["backends"][f"mega/{q} weights"]["decode_step"],
+           "max_abs_err": lm_res["forms"][q]["max_abs_err"], "ms": lm_res["forms"][q]["ms"],
+           "plain_ms": lm_res["forms"][q]["plain_ms"], "bound_ms": lm_res["forms"][q]["bound_ms"],
+           "bound_by": lm_res["forms"][q]["bound_by"], "library_ms": None,
+           "by_position": lm_res["forms"][q]["by_position"],
+           "tok_s": lm_res["backends"][f"mega/{q} weights"]["tok_s"],
+           "parting_from_dense": lm_res["partings_from_dense"][f"mega/{q} weights"]}
+          for q in LM_FORMS],
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",
@@ -2663,7 +2978,7 @@ def main() -> int:
          "max_abs_err": max(slot_attn["max_abs_err"], slot_attn["max_abs_err_slots"]),
          **slot_attn["times"][(4, 300)],
          "by_slots_and_position": {f"{n}x{p}": v for (n, p), v in slot_attn["times"].items()},
-         "serving": serving, "front_ends": front},
+         "serving": serving, "front_ends": front, "demos": demos},
         {"name": "generate", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/generate.cu",
          "replaces": "qwen_tts_tpu/ops/generate_kernel.py:52",

@@ -3,13 +3,15 @@ TTS engine speaks the finished sentences.
 
 Port of `demos/demo_local_agent.py`. A Qwen3-0.6B-architecture text LM
 (`models/text_lm.py`) produces reply tokens chunk by chunk
-(`TextLM.generate_stream`, one host read a chunk) in an executor thread; a
+(`TextLM.generate_stream`: on the card the prompt's prefill and each chunk
+one CUDA-graph replay, captured by `TextLM.warm` before the first turn,
+one host read a chunk) in an executor thread; a
 sentence assembler hands each finished sentence to
 `TTSEngine.synthesize_streaming`, so speech for sentence k overlaps the
 decode of the next ones. Both models are resident on one card. On the
-card the LM's steps (decode-step kernel launches on the thread's stream,
-its own workspace) and the engine's chunk graphs (on the graphs' stream,
-with the workspace they own) are enqueued from two threads.
+card the LM's graphs (on the LM's stream, with the decode kernel's
+workspace they own) and the engine's chunk graphs (on the engine's, with
+theirs) are replayed from two threads.
 
 Random weights give arbitrary token ids, so reply ids are mapped onto a
 small pronounceable word list, which times as real text of the same length
@@ -143,17 +145,16 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     from ..engine.tts_engine import TTSConfig, TTSEngine
-    from ..models.text_lm import TEXT_LM_CONFIG, TextLM, init_text_lm_weights
+    from ..models.text_lm import TEXT_LM_CONFIG, TextLM, chunk_lengths, init_text_lm_weights
 
     print("building text LM (Qwen3-0.6B architecture, random weights)...")
     t0 = time.perf_counter()
     impl = "mega" if args.device.startswith("cuda") else "dense"
     lm = TextLM(init_text_lm_weights(7, TEXT_LM_CONFIG, args.device), TEXT_LM_CONFIG,
                 attn_impl=impl, device=args.device)
-    # warm what a turn runs: the prefill and every chunk length
-    list(lm.generate_stream(encode_prompt("warm"),
-                            max_new_tokens=args.sentences * args.words_per_sentence,
-                            chunk=args.lm_chunk))
+    # capture what a turn replays: the prompt's prefill and every chunk length
+    lm.warm(PROMPT_BUCKET, chunk_lengths(args.sentences * args.words_per_sentence,
+                                         args.lm_chunk))
     print(f"  LM ready in {time.perf_counter() - t0:.1f} s")
 
     print("building TTS engine...")

@@ -49,10 +49,11 @@ hidden state, trailing rows and context codes, and the outputs of its
 unread chunks) in tensors of that stream and restores the caller's, so
 live streams of one engine interleave freely and each yields what it
 yields alone. With one live stream nothing is copied. A capture or replay
-that fails raises; nothing falls back to the eager loop. On the CPU the
-same bodies run eagerly, in the same order. `fused_chunks=False` is the
-eager loop: each chunk's ops enqueued from Python and read back before the
-next chunk starts, the last chunk cut at the cap, its audio what the fused
+that fails raises; nothing falls back to the per-frame generator. On the CPU the
+same bodies run eagerly, in the same order. `fused_chunks=False` is JAX's
+per-frame generator: one `frame_step` a frame, the host checking the
+token for EOS before each, so no frame is computed past EOS or the cap;
+its frames are buffered into the same chunks, with the audio the fused
 path yields. Every backend runs on both paths: "mega" keeps the talker's
 position in the decode kernel's own array, "pallas" and "dense" in the
 talker state's device position (`models/decoder.py`), which their
@@ -96,6 +97,7 @@ import torch.nn.functional as F
 
 from ..core.config import (
     CODEC_BOS,
+    CODEC_EOS,
     CODEC_NOTHINK,
     CODEC_PAD,
     CODEC_THINK_BOS,
@@ -108,7 +110,8 @@ from ..core.config import (
 from ..core.weights import QUANTIZERS, TTSWeights, init_tts_weights, load_tts_weights
 from ..models.decoder import init_state
 from ..models.text_projection import embed_text_ids
-from ..runtime.frame_loop import frames_chunk, talker_prefill
+from ..ops.sampling import gumbel_from_uniform
+from ..runtime.frame_loop import frame_step, frames_chunk, talker_prefill
 from ..vocoder.code2wav import (
     Code2WavConfig,
     build_tree,
@@ -119,7 +122,7 @@ from ..vocoder.code2wav import (
 from ..vocoder.code2wav_fast import code2wav_apply_packed, pack_code2wav_weights
 from ..vocoder.loader import load_code2wav, load_vocoder
 from ..vocoder.model import VocoderConfig, init_vocoder_weights, vocoder_decode
-from .chunk_graphs import RING, ChunkGraphs, Slot
+from ..runtime.chunk_graphs import RING, ChunkGraphs, Slot
 from .tokenizer import encode_tts_prompt, load_tokenizer
 
 _MASK64 = (1 << 64) - 1
@@ -172,7 +175,7 @@ class TTSConfig:
     trailing_bucket: int = TRAILING_BUCKET
     backend: str = "auto"                 # auto | dense | pallas | mega
     # One CUDA-graph replay per audio chunk, the next chunk enqueued before
-    # the current one is read; False: the eager loop
+    # the current one is read; False: the per-frame generator
     fused_chunks: bool = True
     # Capture the graphs of one text bucket and `chunk_frames`, and warm the
     # vocoder's shapes, in initialize(): no request pays for either
@@ -548,9 +551,9 @@ class TTSEngine:
 
     def _generate_chunks(self, text: str, chunk_size: int, with_audio: bool):
         """Yield (audio f32 or None, frames) per chunk: 1 frame, then
-        `chunk_size`, by the fused path or the eager loop."""
+        `chunk_size`, by the fused path or the per-frame generator."""
         if not self.config.fused_chunks:
-            return self._generate_chunks_eager(text, chunk_size, with_audio)
+            return self._generate_frame_chunks(text, chunk_size, with_audio)
         if chunk_size == self.config.chunk_frames:
             return self._generate_audio_chunks(text, chunk_size)
         return self._generate_codec_chunks(text, chunk_size, with_audio)
@@ -950,17 +953,17 @@ class TTSEngine:
         finally:
             self._release(s)
 
-    # ── the eager loop (fused_chunks=False) ──────────────────────────────
+    # ── the per-frame generator (fused_chunks=False) ─────────────────────
 
-    def _generate_chunks_eager(self, text: str, chunk_size: int, with_audio: bool):
-        """Each chunk's ops enqueued from Python and read back before the
-        next chunk, with the fused path's audio: "fast": a full chunk of a
-        bucket's length (1 or `chunk_frames`) is its own vocoder decode, any
-        other chunk, of another size or cut short by EOS or the cap, is
-        decoded from its kept frames through `_decode_to_audio`, as in the
-        JAX engine; Code2Wav: each chunk with the previous one as context."""
-        mc, dev = self.model_config, self.device
-        hop = self.vocoder_config.hop_length
+    def _generate_codec_frames(self, text: str):
+        """Yield one frame's codes (int32 `[16]`) at a time (JAX
+        `_generate_codec_frames` :1004-1053): the conditioning prefill and
+        the CODEC_BOS step, then one `frame_step` a frame. Before each frame
+        the host reads the token it would feed and stops at CODEC_EOS, or at
+        the frame cap: no frame is computed past either. Frame f's noise is
+        the fused path's draw for (request, f), so both paths give the same
+        codes."""
+        mc, cfg, dev = self.model_config, self.config, self.device
         content, Tpad, max_frames, req = self._new_request(text)
         ids = np.zeros(Tpad + 1, dtype=np.int64)
         ids[:len(content)], ids[Tpad] = content, len(content)
@@ -970,40 +973,50 @@ class TTSEngine:
         state, token, hidden = self._start(ids[:Tpad], ids[Tpad], trailing, t_len,
                                            self._talker_cache())
         self._count_steps(0, first=True)
-        c2w = self._c2w and self.vocoder_weights is not None
-        base, prev = 0, None
-        while base < max_frames:
-            n = 1 if base == 0 else chunk_size
-            n_run = min(n, max_frames - base)     # frames past the cap are never kept
-            idx0 = torch.full((), base, dtype=torch.int32, device=dev)
-            state, codes, valid, token, hidden = self._frames(
-                state, token, hidden, trailing, t_len, idx0,
-                self._draw(req, base, n_run), n_run)
-            self._count_steps(n_run)
-            # a full chunk whose length is its own vocoder bucket decodes on
-            # the device at once; any other goes through the bucket padding
-            direct = (with_audio and not c2w and self.vocoder_weights is not None
-                      and n_run == n and self._bucket(n) == n)
-            audio = self._frames_decode(codes) if direct else None
-            codes_np = codes.cpu().numpy().astype(np.int32)
-            keep = int(valid.cpu().sum())
-            frames = [codes_np[i] for i in range(keep)]
-            self._frames_generated = base + keep
+        self._talker_state = state
+        for step in range(max_frames):
+            if int(token) == CODEC_EOS:
+                break
+            uniform = self._draw(req, step, 1)
+            r = frame_step(
+                mc.talker, mc.code_predictor, self.weights.talker, self.weights.code_predictor,
+                state, token, hidden, trailing, t_len,
+                torch.full((), step, dtype=torch.int32, device=dev), self._tts_pad_embed,
+                None if uniform is None else gumbel_from_uniform(uniform)[0],
+                do_sample=cfg.subtalker_do_sample, temperature=cfg.subtalker_temperature,
+                top_k=cfg.subtalker_top_k, attn_impl=self._attn_impl,
+                mrope_deltas=self._mrope_deltas, cp_state=self._cp_state)
+            state, token, hidden = r.state, r.next_token, r.next_hidden
+            self._count_steps(1)
+            self._frames_generated = step + 1
             self._talker_state = state
-            if keep > 0 and with_audio:
-                if direct and keep == n:
-                    audio = audio.cpu().numpy()[: n * hop]
-                elif c2w:
-                    audio = self._context_chunk_audio(frames, n, prev)
-                else:
-                    audio = self._decode_to_audio(frames)[0]
-            if keep == n:
-                yield audio, frames
-            else:
-                if keep > 0:
-                    yield audio, frames
-                return
-            base, prev = base + n, codes_np
+            yield r.codes.cpu().numpy().astype(np.int32)
+
+    def _generate_frame_chunks(self, text: str, chunk_size: int, with_audio: bool):
+        """The per-frame generator's frames buffered into a 1-frame chunk,
+        then `chunk_size`-frame chunks and what is left at the end (JAX
+        `synthesize_streaming` :724-736), each with its audio: "fast"
+        `_decode_to_audio` of the chunk (JAX's, and the fused path's); Code2Wav
+        the chunk decoded with the previous one as left context, as the fused
+        path decodes it (JAX decodes each chunk alone, a seam at every chunk:
+        ROADMAP C.3)."""
+        c2w = self._c2w and self.vocoder_weights is not None
+
+        def audio(frames, n, prev):
+            if not with_audio:
+                return None
+            if c2w:
+                return self._context_chunk_audio(frames, n, prev)
+            return self._decode_to_audio(frames)[0]
+
+        buffer, prev, target = [], None, 1
+        for frame in self._generate_codec_frames(text):
+            buffer.append(frame)
+            if len(buffer) == target:
+                yield audio(buffer, target, prev), buffer
+                prev, buffer, target = np.stack(buffer), [], chunk_size
+        if buffer:
+            yield audio(buffer, target, prev), buffer
 
     # ── vocoder ──────────────────────────────────────────────────────────
 
@@ -1071,8 +1084,8 @@ class TTSEngine:
     def decode_launches(self) -> int:
         """The decode-step kernel's launches so far, as the kernel counts
         them itself (graph replays included): on the fused path those of
-        the engine's graphs and their warm-up runs, on the eager path all
-        those of the current stream. A device read; CUDA only."""
+        the engine's graphs and their warm-up runs, on the per-frame
+        generator all those of the current stream. A device read; CUDA only."""
         from ..ops.decode_step import device_launches
 
         if self.config.fused_chunks:
@@ -1082,8 +1095,9 @@ class TTSEngine:
     def get_metrics(self) -> dict:
         """Sample rate, talker cache position, frames kept, the number of
         the last request (which keys its sampling noise), and the talker
-        and code-predictor decode steps run so far, frames computed past EOS
-        or the cap included (each one decode-step launch on the "mega"
+        and code-predictor decode steps run so far, on the fused path frames
+        computed past EOS or the cap included, on the per-frame generator
+        none (each one decode-step launch on the "mega"
         backend, and one decode-attention launch per layer on the "pallas"
         backend)."""
         state = getattr(self, "_talker_state", None)

@@ -77,7 +77,9 @@ class ChunkGraphs:
         libraries it calls are set up. The arrays of `carried` caches are
         not filled in the graph (the graph before it leaves them set); every
         other array the body uses is filled once, at the positions it asks
-        for at capture. The garbage collector is off while it captures: a
+        for at capture. The capture is thread-local: another thread (the
+        agent's text LM beside the TTS engine) may keep using the card
+        meanwhile. The garbage collector is off while it captures: a
         dropped object holding graphs (another engine's, in a reference
         cycle) would destroy them mid-capture, which invalidates it. A
         capture that fails raises."""
@@ -89,7 +91,8 @@ class ChunkGraphs:
         gc.disable()
         try:
             with self.owned.active(carried=carried):
-                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                      capture_error_mode="thread_local"):
                     body()
         finally:
             if collecting:

@@ -62,7 +62,7 @@ from typing import AsyncGenerator, Optional
 import numpy as np
 import torch
 
-from ..engine.chunk_graphs import RING, ChunkGraphs, Slot
+from .chunk_graphs import RING, ChunkGraphs, Slot
 from ..engine.tokenizer import encode_tts_prompt
 from ..models.decoder import init_state
 from .batch import batched_frames

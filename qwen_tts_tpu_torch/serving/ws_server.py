@@ -219,6 +219,12 @@ class TTSWebSocketServer:
                     pass
 
     async def start(self) -> None:
+        """Build the native audio runtime (a C compile at its first use in a
+        checkout, which would otherwise stall the first request's audio on
+        this loop), then accept connections."""
+        from ..runtime.native import native_available
+
+        await asyncio.get_running_loop().run_in_executor(None, native_available)
         self._server = await serve(self.handle, self.host, self.port, max_size=None)
         if self.port == 0:   # ephemeral: publish the bound port
             self.port = self._server.sockets[0].getsockname()[1]

@@ -341,7 +341,7 @@ def test_cuda_step_of_a_slot_at_the_cache_end(weights, impl):
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["pallas", "dense"])
 def test_cuda_graphs_of_the_backend_equal_its_eager_loop(tiny, backend):
-    """On the card: the backend's captured chunks give its eager loop's
+    """On the card: the backend's captured chunks give its per-frame generator's
     codes bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")

@@ -10,7 +10,9 @@ CPU, built from `model_path` and `vocoder_path`: its streamed audio equals
 the JAX engine's `frames_decode` chain (each chunk after the previous
 one's codes, a partial last chunk repeat-padded) on the port's own codes
 within 1e-4, on the fused path at `chunk_frames` and at another size and
-on the eager loop; `synthesize` is the stream joined; the windowed
+on the per-frame generator, where JAX's own generator decodes each chunk
+without that context (a seam at every chunk, ROADMAP C.3); `synthesize` is
+the stream joined; the windowed
 whole-utterance decode equals JAX's; the vocoder modes; and interleaved
 streams yield what they yield alone."""
 
@@ -205,7 +207,7 @@ def test_streamed_audio_equals_jax_frames_decode_chain(ckpt, fused, jax_vocoder,
                                                        monkeypatch, path, k):
     """1 + 5 + 5 + a partial 3 (the cap of 14 frames), and 1 + 4 + 4 + 4 +
     a partial 1 at the non-default size: every chunk's audio within 1e-4 of
-    JAX's chain on the same codes; the eager loop's codes and audio equal
+    JAX's chain on the same codes; the per-frame generator's codes and audio equal
     the fused path's."""
     eng = fused if path == "fused" else _engine(ckpt, monkeypatch, fused_chunks=False)
     eng._requests = 40
@@ -221,6 +223,28 @@ def test_streamed_audio_equals_jax_frames_decode_chain(ckpt, fused, jax_vocoder,
         for (a, fa), (b, fb) in zip(chunks, ref):
             np.testing.assert_array_equal(np.stack(fa), np.stack(fb))
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+
+
+def test_generator_keeps_the_left_context_that_jax_drops(ckpt, jax_vocoder, monkeypatch):
+    """ROADMAP C.3: JAX's per-frame generator (`synthesize_streaming` with
+    `fused_chunks=False`) decodes each buffered chunk alone
+    (`_decode_to_audio(buffer)`), so every chunk after the first starts as
+    an utterance would: a seam. The port's keeps the previous chunk as left
+    context, as both fused paths do (it equals JAX's `frames_decode` chain:
+    `test_streamed_audio_equals_jax_frames_decode_chain[eager-5]`); JAX's
+    per-chunk decode of the same codes differs from it in the chunk's first
+    hop by more than ten times that test's 1e-4 and a tenth of the audio's
+    peak."""
+    eng = _engine(ckpt, monkeypatch, fused_chunks=False)
+    eng._requests = 40
+    chunks = list(eng._generate_chunks(TEXT, 5, with_audio=True))
+    hop = eng.vocoder_config.hop_length
+    assert len(chunks) >= 3
+    for audio, frames in chunks[1:]:
+        alone, _ = jax_vocoder._decode_to_audio(list(frames))
+        assert alone.shape == audio.shape
+        head = np.abs(alone[:hop] - audio[:hop]).max()
+        assert head > max(10 * 1e-4, 0.1 * float(np.abs(audio).max())), head
 
 
 def test_synthesize_is_the_stream_joined(fused):

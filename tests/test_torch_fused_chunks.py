@@ -8,7 +8,7 @@ first-chunk body to the JAX engine's `first_fn`; the fused engine to the
 eager one; the speculation policy and the room check of the JAX engine's
 `_generate_audio_chunks`; and interleaved streams of one engine to the
 same streams alone. One `gpu` test
-holds a captured chunk to the eager chunk on the card."""
+holds captured chunks to the per-frame generator on the card."""
 
 import jax
 import jax.numpy as jnp
@@ -321,15 +321,16 @@ def test_room_check_raises_before_the_replay(tiny_cfg, weights, monkeypatch):
 
 
 def test_eager_loop_stops_at_eos_without_speculation(eager, monkeypatch):
-    """`fused_chunks=False`: each chunk read before the next, so nothing is
-    computed past the chunk that holds EOS."""
+    """`fused_chunks=False`, the per-frame generator: the host checks each
+    token before the frame it feeds, so no frame is computed past EOS (the
+    BOS step and the three kept frames, JAX's `_generate_codec_frames`)."""
     _eos_after(monkeypatch, 4)                        # frames 0-2 kept
     m0 = eager.get_metrics()
     frames = _frames(_chunks(eager, " ".join(["word"] * 20), 4, 61))
     m1 = eager.get_metrics()
     assert len(frames) == 3
-    assert m1["talker_steps"] - m0["talker_steps"] == 1 + 1 + 4
-    assert m1["cp_steps"] - m0["cp_steps"] == 14 * 5
+    assert m1["talker_steps"] - m0["talker_steps"] == 1 + 3
+    assert m1["cp_steps"] - m0["cp_steps"] == 14 * 3
 
 
 @pytest.mark.parametrize("backend", ["pallas", "dense"])
@@ -339,7 +340,7 @@ def test_uncapturable_backends_raise_with_fused_chunks_on_cuda(tiny_cfg, weights
     CUDA (their ops took host positions). They now build their graphs: the
     engine takes the option, its talker state carries its position on the
     device, and the bodies its graphs replay (run eagerly here) yield the
-    eager loop's codes and audio bit for bit, leaving the device position
+    per-frame generator's codes and audio bit for bit, leaving the device position
     where the host's is."""
     TTSEngine(TTSConfig(backend=backend))
     g = _engine(tiny_cfg, weights, fused.vocoder_weights, backend=backend, chunk_frames=4)
@@ -364,8 +365,8 @@ def _to_cuda(tree):
 
 @pytest.mark.gpu
 def test_captured_chunks_equal_eager_chunks_on_the_card(tiny_cfg, weights):
-    """On the card: the graph path's codes equal the eager loop's bit for
-    bit (the same kernels, replayed), streaming and at another chunk size."""
+    """On the card: the graph path's codes equal the per-frame generator's
+    bit for bit (the same kernels), streaming and at another chunk size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     w = _to_cuda(weights)

@@ -56,7 +56,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert {"qwen_tts_tpu_torch.core.safetensors", "qwen_tts_tpu_torch.vocoder.code2wav",
             "qwen_tts_tpu_torch.vocoder.code2wav_fast",
             "qwen_tts_tpu_torch.vocoder.loader", "qwen_tts_tpu_torch.runtime.batch",
-            "qwen_tts_tpu_torch.runtime.continuous"} <= set(names)
+            "qwen_tts_tpu_torch.runtime.continuous", "qwen_tts_tpu_torch.models.text_lm",
+            "qwen_tts_tpu_torch.demos.local_agent", "qwen_tts_tpu_torch.demos.tts",
+            "qwen_tts_tpu_torch.demos.pipeline", "qwen_tts_tpu_torch.demos.ws_client",
+            "qwen_tts_tpu_torch.demos.voice_agent"} <= set(names)
 
 
 def test_port_imports_no_file_or_tokenizer_library_at_module_level():

@@ -28,6 +28,7 @@ from qwen_tts_tpu.models import decoder as jd
 from qwen_tts_tpu.models import text_lm as jlm
 from qwen_tts_tpu.ops import attention as jattn
 from qwen_tts_tpu.ops import decode_step as jds
+from qwen_tts_tpu.runtime import generate as jgen
 from qwen_tts_tpu_torch.core.config import DecoderConfig
 from qwen_tts_tpu_torch.core.safetensors import save_file
 from qwen_tts_tpu_torch.core.weights import DecoderWeights, convert_tuple, to_torch
@@ -101,7 +102,7 @@ def test_generate_stream_any_chunking_and_stop_ids(weights, impl):
     jw, tw = weights
     lm = _port(tw, impl)
     ref = lm.generate(PROMPT, N_NEW)
-    for chunk in (1, 4, 5, 32):
+    for chunk in (1, 4, 5, 16, 32):
         streamed = [t for b in lm.generate_stream(PROMPT, max_new_tokens=N_NEW, chunk=chunk)
                     for t in b]
         assert streamed == ref, chunk
@@ -112,6 +113,74 @@ def test_generate_stream_any_chunking_and_stop_ids(weights, impl):
         PROMPT, max_new_tokens=N_NEW, chunk=3, stop_ids=(stop,)) for t in b]
     assert streamed == want == ref[:ref.index(stop)]
     assert list(lm.generate_stream(PROMPT, chunk=3, stop_ids=(ref[0],))) == []
+
+
+@pytest.mark.parametrize("impl", ["dense", "mega"])
+def test_graph_bodies_match_jax_prefill_and_generate_tokens(weights, impl):
+    """The bodies the GPU captures (the prompt's prefill into the LM's static
+    state, a chunk of n steps from the carried token), run eagerly on the
+    CPU in replay order: the first token is JAX `_prefill_ids`'s, each
+    chunk's tokens JAX `generate_tokens`' from it, and every prefill and
+    chunk is one replay."""
+    jw, tw = weights
+    jstate, jfirst, _ = jlm._prefill_ids(J_TINY, jw, jnp.asarray(PROMPT, dtype=jnp.int32))
+    _, jtoks = jgen.generate_tokens(J_TINY, jw, jstate, jfirst, 16)
+    lm = _port(tw, impl)
+    assert lm._prefill(PROMPT, (8,)) == int(jfirst)
+    assert lm._chunk(8) + lm._chunk(8) == [int(t) for t in np.asarray(jtoks)]
+    assert lm._graphs.replays == 3 and lm.steps == 16 and lm._pos == len(PROMPT) + 16
+    lm.warm(len(PROMPT), (8, 3))        # nothing to capture on the CPU
+    assert lm._graphs.graphs == {} and set(lm._out) == {3, 8}
+
+
+@pytest.mark.parametrize("n,chunk,want", [(17, 16, (16,)), (17, 5, (1, 5)), (1, 8, ()),
+                                          (256, 32, (31, 32)), (3, 32, (2,))])
+def test_chunk_lengths_are_the_graphs_a_stream_replays(n, chunk, want):
+    assert tlm.chunk_lengths(n, chunk) == want
+
+
+def _jax_generate(jw, impl, prompt, kv="bf16"):
+    """JAX's tokens for the port's backend `impl` ("mega": JAX dense)."""
+    jimpl = "dense" if impl == "mega" else impl
+    return jlm.TextLM(jw, J_TINY, attn_impl=jimpl, kv_cache=kv).generate(prompt, N_NEW)
+
+
+@pytest.mark.parametrize("impl", ["dense", "pallas"])
+def test_one_id_prompts_after_another_stream_match_jax(weights, impl, request):
+    """A 1-id prompt prefills as a single-token step, which on "dense" and
+    "pallas" runs at the state's device position: the prefill zeroes it, so
+    a stream after another (here at position len(PROMPT) + N_NEW - 1) starts
+    at row 0 as JAX's fresh state does."""
+    jw, tw = weights
+    if impl == "pallas":
+        request.getfixturevalue("jax_pallas_interpret")
+    lm = _port(tw, impl)
+    for prompt in (PROMPT, [5], [7]):
+        assert lm.generate(prompt, N_NEW) == _jax_generate(jw, impl, prompt), prompt
+
+
+@pytest.mark.parametrize("impl", ["dense", "pallas", "mega"])
+def test_interleaved_streams_match_jax(weights, impl, request):
+    """Streams on one `TextLM` interleave, as JAX's (each with a state of its
+    own): a stream that resumes after another ran parks the holder's state
+    and restores its own, and every stream, a plain `generate` between
+    their chunks included, gives JAX's tokens for its prompt."""
+    jw, tw = weights
+    if impl == "pallas":
+        request.getfixturevalue("jax_pallas_interpret")
+    prompts = (PROMPT, [9], [3, 1, 4, 1, 5, 9, 2, 6])
+    want = [_jax_generate(jw, impl, p) for p in prompts]
+    lm = _port(tw, impl)
+    a = lm.generate_stream(prompts[0], N_NEW, chunk=4)
+    b = lm.generate_stream(prompts[1], N_NEW, chunk=3)
+    got_a, got_b = next(a), next(b)
+    assert lm.generate(prompts[2], N_NEW) == want[2]
+    for x, y in zip(a, b):
+        got_a, got_b = got_a + x, got_b + y
+    got_a += [t for x in a for t in x]
+    got_b += [t for y in b for t in y]
+    assert got_a == want[0] and got_b == want[1]
+    assert lm._owner is None
 
 
 def test_tied_head_convention(weights):

@@ -468,3 +468,27 @@ def test_synthesize_ws_audio_matches_its_accounting(batcher2):
     assert sr == 24000 and fin["type"] == "stopped"
     assert audio.dtype == np.float32 and audio.shape[0] == fin["samples"] > 0
     assert np.abs(audio).max() <= 1.0
+
+
+def test_start_builds_the_native_runtime_before_the_first_request(batcher2, monkeypatch):
+    """The native audio runtime (`runtime/native.py`, PCM16 conversion) is
+    compiled by `cc` at its first use in a checkout. The server builds it in
+    `start()`, before it accepts a connection, so the first request's audio
+    does not wait for the compile on the serving loop (ROADMAP C.1: ~0.4 s
+    of every first burst on the card, from a fresh checkout)."""
+    from qwen_tts_tpu_torch.runtime import native
+
+    monkeypatch.setattr(native, "_TRIED", False)
+    monkeypatch.setattr(native, "_LIB", None)
+    calls, phase, real = [], {"now": "start"}, native._build_lib
+    monkeypatch.setattr(native, "_build_lib", lambda: (calls.append(phase["now"]), real())[1])
+    server = TTSWebSocketServer(SharedBatcher(batcher=batcher2), port=0)
+
+    async def drive(uri):
+        phase["now"] = "serving"
+        audio, _sr, final = await synthesize_ws(uri, "hi")
+        return audio, final
+
+    audio, final = _run(server, drive)
+    assert final["type"] == "stopped" and len(audio) > 0
+    assert calls[0] == "start" and set(calls[1:]) <= {"serving"}

@@ -3,7 +3,7 @@
 
     python3 tools/profile_port.py [--root DIR] [--positions P,...] [profile] [phases]
                                   [positions] [forms] [steps] [vocoder] [requests]
-                                  [field=value ...]
+                                  [agent] [bursts] [field=value ...]
 
 With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
 random weights from seed 0, `TTSConfig()` on the card, with any
@@ -63,6 +63,26 @@ parent.
              of `fused_chunks` the tree's `TTSConfig` has (both, on one set
              of weights: the CUDA-graph path and the eager loop; a tree
              without the field runs its only path).
+  agent      the text LM (`models/text_lm.py`, Qwen3-0.6B widths, random
+             weights from a seed) on the tree's main path: the 64-id prompt's
+             prefill to its first token on the host (the first item of
+             `generate_stream`, median of five), `generate` of 256 tokens on
+             "mega", "pallas" and "dense" (the second run of each, tok/s: a
+             tree whose LM runs CUDA graphs captures them in the first); then
+             four agent turns (`demos/local_agent.py::agent_turn`, 3 sentences
+             of 10 words, LM chunk 16) on "mega" with the engine: the LM's
+             first sentence, first audio after it and user → first audio. A
+             tree whose `TextLM` has `warm` captures the turn's graphs first,
+             as its demo does; an older one warms by a stream.
+  bursts     four WebSocket clients at once (`serving/ws_server.py` on the
+             port's own client) on a fresh `ContinuousBatcher` of
+             `chip_smoke.py` phase 16's bf16 config (S = 1024, 4 slots) and
+             on one that served phase 16's staggered burst first, in turn
+             fresh, used, fresh, used: each client's first audio, and on
+             the same host clock each admission, the first dispatches, the
+             graphs' spans on the device (CUDA events placed on the host
+             clock), the host's reads of their outputs and any garbage-
+             collector pass of 10 ms or more (ROADMAP C.1).
 
 Every line carries the card's name and power limit. The full profiler
 tables go to `chiprun_out/profile_port.txt`.
@@ -71,6 +91,7 @@ tables go to `chiprun_out/profile_port.txt`.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import ctypes
 import importlib.util
 import inspect
@@ -538,6 +559,199 @@ def requests(eng, card, n: int = 5):
               f"{wall:.3f} s wall, {graphs} cudaGraphLaunch [{card}]")
 
 
+def agent(eng, card, tokens: int = 256, turns: int = 4):
+    import torch
+
+    from qwen_tts_tpu_torch.demos import local_agent as la
+    from qwen_tts_tpu_torch.models import text_lm as tl
+
+    cfg = tl.TEXT_LM_CONFIG
+    w = tl.init_text_lm_weights(17, cfg)
+    prompt = la.encode_prompt(TEXT)
+    tok_s = {}
+    for impl in ("mega", "pallas", "dense"):
+        lm = tl.TextLM(w, cfg, attn_impl=impl)
+        lm.generate(prompt, tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.generate(prompt, tokens)
+        tok_s[impl] = tokens / (time.perf_counter() - t0)
+        del lm
+    n_tok, chunk = 30, 16
+    lm = tl.TextLM(w, cfg, attn_impl="mega")
+    if hasattr(lm, "warm"):
+        lm.warm(la.PROMPT_BUCKET, tl.chunk_lengths(n_tok, chunk))
+    else:
+        list(lm.generate_stream(la.encode_prompt("warm"), n_tok, chunk=chunk))
+    prefill = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream = lm.generate_stream(prompt, n_tok, chunk=chunk)
+        next(stream)
+        prefill.append((time.perf_counter() - t0) * 1e3)
+        stream.close()
+    res = [asyncio.run(la.agent_turn(lm, eng, la.USER_TURNS[i % len(la.USER_TURNS)],
+                                     sentences=3, words_per_sentence=10, lm_chunk=chunk,
+                                     verbose=False)) for i in range(turns)]
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    first_s = [t.first_sentence_s * 1e3 for t in res]
+    first_a = [t.first_audio_s * 1e3 for t in res]
+    print(f"agent: LM prefill to the first token {med(prefill):.2f} ms (median of 5; "
+          f"{', '.join(f'{x:.2f}' for x in prefill)}); generate {tokens} tokens tok/s "
+          f"{json.dumps({k: round(v, 1) for k, v in tok_s.items()})}; {turns} turns: LM first "
+          f"sentence {', '.join(f'{x:.1f}' for x in first_s)} ms, user -> first audio "
+          f"{', '.join(f'{x:.1f}' for x in first_a)} ms (medians {med(first_s):.1f} / "
+          f"{med(first_a):.1f}), turn RTF "
+          f"{', '.join(f'{t.wall_s / t.audio_s:.4f}' for t in res)} [{card}]")
+
+
+@contextlib.contextmanager
+def _schedule_log(batcher):
+    """Log while inside, on the host clock: the batcher's admissions and
+    dispatches (sequence number, slot or frames), each graph replay's span
+    on the device (CUDA events around it on the graphs' stream, placed on
+    the host clock by an event recorded when the log starts, the stream
+    idle), the returns of the host's waits for a chunk's outputs, and the
+    garbage collector's passes. Yields (log, spans)."""
+    import gc
+
+    import torch
+
+    g, log, spans, started = batcher._g, [], [], {}
+    real = batcher._admit, batcher._dispatch, g.replay, g.wait
+    ref = torch.cuda.Event(enable_timing=True)
+    ref.record(g.stream)
+    t_ref = time.perf_counter()
+
+    def admit(req, slot):
+        log.append(("admit", time.perf_counter(), batcher._seq + 1, slot, 0.0))
+        return real[0](req, slot)
+
+    def dispatch(n):
+        log.append(("dispatch", time.perf_counter(), batcher._seq + 1, n, 0.0))
+        return real[1](n)
+
+    def replay(key, body):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record(g.stream)
+        real[2](key, body)
+        ev[1].record(g.stream)
+        spans.append((key, ev))
+
+    def wait(slot):
+        real[3](slot)
+        log.append(("read", time.perf_counter(), 0, slot, 0.0))
+
+    def collected(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            t = started.pop("t")
+            log.append(("gc", t, 0, info["generation"], (time.perf_counter() - t) * 1e3))
+
+    batcher._admit, batcher._dispatch, g.replay, g.wait = admit, dispatch, replay, wait
+    gc.callbacks.append(collected)
+    try:
+        yield log, (ref, t_ref, spans)
+    finally:
+        gc.callbacks.remove(collected)
+        batcher._admit, batcher._dispatch = real[:2]
+        del g.replay, g.wait
+
+
+def _schedule(log, spans, t0: float) -> dict:
+    """A schedule log on the clock of `t0` (ms): the admissions, the first
+    six dispatches, the first eight replays' device spans, the first four
+    reads and the garbage collector's passes of 10 ms or more."""
+    import torch
+
+    torch.cuda.synchronize()
+    ref, t_ref, replays = spans
+    ms = lambda t: (t - t0) * 1e3  # noqa: E731
+    dev = lambda ev: ms(t_ref) + ref.elapsed_time(ev)  # noqa: E731
+    return {"admissions": [{"ms": ms(t), "before_dispatch": q, "slot": x}
+                           for kind, t, q, x, _ in log if kind == "admit"],
+            "dispatches": [{"ms": ms(t), "seq": q, "frames": x}
+                           for kind, t, q, x, _ in log if kind == "dispatch"][:6],
+            "device_spans": [{"graph": "/".join(map(str, key[:2])), "start_ms": dev(a),
+                              "end_ms": dev(b)} for key, (a, b) in replays[:8]],
+            "reads_ms": [ms(t) for kind, t, *_ in log if kind == "read"][:4],
+            "gc_passes_10ms": [{"ms": ms(t), "generation": x, "pause_ms": d}
+                               for kind, t, q, x, d in log if kind == "gc" and d >= 10]}
+
+
+def _ws_burst(batcher, texts) -> dict:
+    """`texts` sent at once by as many clients over the WebSocket server on
+    `batcher`: per client its first audio after its send (ms); the
+    batcher's admissions and dispatches on the same clock."""
+    from qwen_tts_tpu_torch.serving._websocket import connect
+    from qwen_tts_tpu_torch.serving.shared import SharedBatcher
+    from qwen_tts_tpu_torch.serving.ws_server import TTSWebSocketServer
+
+    server = TTSWebSocketServer(SharedBatcher(batcher=batcher), port=0)
+
+    async def client(uri, text, i):
+        async with connect(uri, max_size=None) as ws:
+            t0 = time.perf_counter()
+            await ws.send(json.dumps({"type": "synthesize", "text": text, "id": f"b{i}"}))
+            first = None
+            while True:
+                msg = await ws.recv()
+                if isinstance(msg, bytes):
+                    first = first or time.perf_counter()
+                elif json.loads(msg)["type"] != "started":
+                    return t0, first
+
+    async def drive():
+        await server.start()
+        try:
+            uri = f"ws://{server.host}:{server.port}"
+            return await asyncio.gather(*[client(uri, t, i) for i, t in enumerate(texts)])
+        finally:
+            await server.stop()
+
+    with _schedule_log(batcher) as (log, spans):
+        got = asyncio.run(drive())
+    first = sorted((f - s) * 1e3 for s, f in got)
+    return {"first_audio_ms": [(f - s) * 1e3 for s, f in got],
+            "first_audio_p50_ms": first[len(first) // 2],
+            **_schedule(log, spans, min(g[0] for g in got))}
+
+
+def bursts(eng, card):
+    """Four WebSocket clients at once on a fresh `ContinuousBatcher` and on
+    one that has served a staggered burst, in turn (fresh, used, fresh,
+    used), each of `chip_smoke.py` phase 16's bf16 config on the engine's
+    weights: per client its first audio, and on one clock each admission,
+    the first dispatches, the graphs' device spans, the host's reads and
+    any long garbage-collector pass."""
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+    from qwen_tts_tpu_torch.runtime.continuous import ContinuousBatcher
+
+    sm = _smoke()
+
+    def batcher():
+        e = TTSEngine(TTSConfig(max_seq_len=sm.SERVE_SEQ, warmup=False))
+        e.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
+        b = ContinuousBatcher(e, slots=sm.SERVE_SLOTS, chunk_frames=10, admit_chunk_frames=2)
+        b.warm()
+        return b
+
+    used, fresh = batcher(), batcher()
+    sm._staggered(used, [sm.TEXTS[i % len(sm.TEXTS)] for i in range(sm.SERVE_REQUESTS)],
+                  sm.SERVE_GAP_S)
+    texts = [sm.TEXTS[1 + i % 2] for i in range(sm.FRONT_CLIENTS)]
+    res = {}
+    for label, b in (("fresh", fresh), ("used", used), ("fresh_again", fresh),
+                     ("used_again", used)):
+        res[label] = _ws_burst(b, texts)
+        print(f"bursts: {len(texts)} clients at once on the {label} batcher: "
+              f"{json.dumps(res[label])} [{card}]")
+    print("bursts: first audio p50 (ms), fresh / used / fresh / used: " + " / ".join(
+        f"{res[k]['first_audio_p50_ms']:.1f}" for k in res) + f" [{card}]")
+
+
 def main() -> int:
     args = sys.argv[1:]
     root, positions = ROOT, None
@@ -581,6 +795,10 @@ def main() -> int:
                 vocoder(eng, card, out)
             elif name == "requests":
                 requests(eng, card)
+            elif name == "agent":
+                agent(eng, card)
+            elif name == "bursts":
+                bursts(eng, card)
             else:
                 raise SystemExit(f"unknown part {name!r}")
     print(json.dumps({"ok": True, "parts": which}))
