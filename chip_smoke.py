@@ -230,7 +230,32 @@ is printed):
      (`demos/tts.py` writing a wav into a temporary directory, `pipeline.py`,
      `voice_agent.py --text-only` on two lines) and `ws_client.py` (3
      clients, then `--barge-in`) against the WebSocket server on phase
-     16's batcher.
+     16's batcher;
+ 21. incoherence folds at the talker's full width, folded on the card
+     (`core/incoherence.py`, Q and R from seed words): the folded bf16
+     weights through the decode-step kernel against the kernel on the
+     unfolded weights, the same token ids fed at every position from 0,
+     compared at positions 0, 63 and 300: the same argmax, normed
+     (rotated back) cosine > 0.999; the kernel on the folded weights
+     against its plain version in bf16 and int4-g128 (phase 2's and phase
+     9's bars); int4-g128's logit perturbation over those 301 steps with
+     and without the fold;
+ 22. the (dp, tp) mesh (`parallel/`): (a) a one-rank NCCL world,
+     `synthesize_batch(texts, mesh=make_mesh())` on phase 3's engine equal
+     to `synthesize_batch(texts)` bit for bit at the same request numbers,
+     the decode-attention kernel's own count of its launches equal to the
+     batched steps' layers; a streaming request closed after its first
+     chunk, then `drain_device()`: the graphs' stream idle; (b) two ranks
+     in child processes on this one card over gloo (NCCL refuses two
+     ranks on one device), each with its own full-width engine from the
+     same seed: on mesh (1, 2) a tp-sharded talker step at position 300
+     (KVH = 4, HQ = 8 a rank, attention on the decode-attention kernel)
+     against the unsharded step, the same token and normed cosine > 0.999,
+     and the decode-attention kernel at the rank's shape against its plain
+     version as phase 5 holds it (poisoned caches, every position, run
+     twice, max |diff| <= 2e-3 x max(1, max |ref|)); on mesh (2, 1) four texts dp-split, each rank's half equal bit for
+     bit to a one-process batch of those two texts at the same request
+     numbers; every process group torn down at the end of its phase.
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form and one for each text-LM form of the decode step as
 well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
@@ -920,8 +945,10 @@ def _dev_pos(*positions):
     return t[0] if len(positions) == 1 else t
 
 
-def compare_attention(cfg, gen):
-    """Phase 5: the decode-attention kernel against its plain version."""
+def attention_vs_plain(cfg, gen):
+    """The decode-attention kernel against its plain version at `cfg`'s
+    full shape (poisoned caches, every position of ATTN_POSITIONS), run
+    twice. Returns (the errors, the inputs)."""
     import torch
     from qwen_tts_tpu_torch.ops.attention import decode_attention, decode_attention_reference
 
@@ -938,10 +965,20 @@ def compare_attention(cfg, gen):
         same = torch.equal(got, again)
         ok = err <= 2e-3 * max(1.0, scale) and bool(torch.isfinite(got).all()) and same
         print("decode attention vs plain", json.dumps(
-            {"pos": pos, "max_abs": err, "ref_max_abs": scale, "run_twice_bit_identical": same,
+            {"q_heads": cfg.num_q_heads, "kv_heads": cfg.num_kv_heads, "pos": pos,
+             "max_abs": err, "ref_max_abs": scale, "run_twice_bit_identical": same,
              "ok": ok}))
-        assert ok, (pos, err, scale)
+        assert ok, (cfg.num_kv_heads, pos, err, scale)
         errs.append(err)
+    return errs, (q, k_new, v_new, kc, vc, rows)
+
+
+def compare_attention(cfg, gen):
+    """Phase 5: the decode-attention kernel against its plain version."""
+    import torch
+    from qwen_tts_tpu_torch.ops.attention import decode_attention, decode_attention_reference
+
+    errs, inputs = attention_vs_plain(cfg, gen)
     # the kernel's other instantiations: G = 1 and G = 8 q heads per kv head
     for HQ, KVH in ((8, 8), (16, 2)):
         q2, kn2, vn2 = (torch.randn(shape, generator=gen, device="cuda")
@@ -957,7 +994,7 @@ def compare_attention(cfg, gen):
                 {"G": HQ // KVH, "pos": pos, "max_abs": err, "ref_max_abs": scale}))
             assert err <= 2e-3 * max(1.0, scale), (HQ, KVH, pos, err)
             errs.append(err)
-    return max(errs), (q, k_new, v_new, kc, vc, rows)
+    return max(errs), inputs
 
 
 def generate_loop(cfg, w, state, first: int, steps: int, starts):
@@ -2580,6 +2617,235 @@ def generator_and_demos_phase(eng, batcher, card) -> dict:
     return res
 
 
+# ── phases 21-22: incoherence folds, the (dp, tp) mesh ────────────────────
+
+FOLD_POSITIONS = (0, 63, 300)          # phase 21: compared positions of the token-id decode
+MESH_TEXTS = ("Hello from the GPU.", "Two ranks share one card.",
+              "Each rank serves half the batch.", "The results are gathered.")
+MESH_DEADLINE_S = 300                  # phase 22 (b): the two ranks are killed past this
+
+
+def _forced_decode(cfg, w, tokens) -> tuple:
+    """The decode-step kernel fed `tokens[p]`'s embedding at each position p
+    from 0: (logits [P, V], normed [P, H]) f32, and the launches made."""
+    import torch
+    from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.ops.decode_step import megakernel_forward
+
+    state, logits, normed = init_state(cfg, "cuda"), [], []
+    ids = torch.as_tensor(tokens, device="cuda")
+    for p in range(len(tokens)):
+        state, lg, nm = megakernel_forward(cfg, w, state, w.embed[ids[p:p + 1]][0])
+        logits.append(lg)
+        normed.append(nm)
+    return torch.stack(logits), torch.stack(normed)
+
+
+def _perturbation(lo, lq) -> dict:
+    """int4's logits `lq` against bf16's `lo` over the same steps, as
+    `benchmarks/exp_weight_stats.py::analyze` reads them: the median of
+    each step's max |diff| and the share of equal argmaxes."""
+    pert = (lq - lo).abs().amax(dim=-1)
+    return {"pert_med": float(pert.median()), "pert_max": float(pert.max()),
+            "agree": float((lq.argmax(-1) == lo.argmax(-1)).float().mean())}
+
+
+def incoherence_phase(eng, gen, card) -> dict:
+    """Phase 21 (module docstring)."""
+    import numpy as np
+    import torch
+    from qwen_tts_tpu_torch.core.incoherence import (
+        incoherent_decoder_weights,
+        random_orthogonal,
+    )
+    from qwen_tts_tpu_torch.core.weights import QUANTIZERS
+    from qwen_tts_tpu_torch.ops import decode_step
+
+    cfg, w = eng.model_config.talker, eng.weights.talker
+    t0 = time.perf_counter()
+    fw = incoherent_decoder_weights(w, cfg, (SEED, 21), (SEED, 22))
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(SEED + 21).integers(0, cfg.vocab_size, FOLD_POSITIONS[-1] + 1)
+    decode_step.megakernel_forward.launches = 0
+    lo, no = _forced_decode(cfg, w, tokens)
+    lf, nf = _forced_decode(cfg, fw, tokens)
+    w4, f4 = QUANTIZERS["int4"](w), QUANTIZERS["int4"](fw)
+    l4, _ = _forced_decode(cfg, w4, tokens)
+    lf4, _ = _forced_decode(cfg, f4, tokens)
+    launches = decode_step.megakernel_forward.launches
+    Q = torch.from_numpy(random_orthogonal((SEED, 21), cfg.hidden_size)).cuda()
+    back = (nf @ Q.T) * w.final_norm.float()            # the folded normed, rotated back
+    res = {"fold_s": fold_s, "launches": launches, "positions": {}}
+    for p in FOLD_POSITIONS:
+        r = {"argmax_equal": int(lo[p].argmax()) == int(lf[p].argmax()),
+             "normed_cos": _cos(back[p], no[p]), "logits_cos": _cos(lf[p], lo[p]),
+             "logits_max_abs": float((lf[p] - lo[p]).abs().max())}
+        res["positions"][str(p)] = r
+        assert r["argmax_equal"] and r["normed_cos"] > 0.999, (p, r)
+    res["argmax_agree_all"] = float((lf.argmax(-1) == lo.argmax(-1)).float().mean())
+    res["int4_perturbation"] = {"unfolded": _perturbation(lo, l4),
+                                "folded": _perturbation(lf, lf4)}
+    res["kernel_vs_plain"] = {}
+    for label, ww, bar in (("bf16", fw, False), ("int4", f4, True)):
+        for pos in (0, 300):
+            r, c = compare_kernel(cfg, ww, pos, True, gen, mrope=False, quant_bar=bar)
+            del c
+            res["kernel_vs_plain"][f"{label}@{pos}"] = {k: r[k] for k in (
+                "normed_cos", "normed_max_abs", "logits_max_abs", "logits_cos", "argmax_equal")}
+    res["max_abs_err"] = max(v["logits_max_abs"] for v in res["kernel_vs_plain"].values())
+    print(f"incoherence folds, talker at full width (folded on the card in {fold_s:.2f} s): "
+          f"{json.dumps(res)} {card}")
+    print(f"incoherence: int4-g128 logit perturbation over {len(tokens)} forced steps, "
+          f"median max |diff| {res['int4_perturbation']['unfolded']['pert_med']:.4f} "
+          f"unfolded, {res['int4_perturbation']['folded']['pert_med']:.4f} folded; "
+          f"{launches} decode-step launches {card}")
+    del fw, w4, f4
+    return res
+
+
+def _same_audio(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(sa == sb and np.array_equal(x, y)
+                                    for (x, sa), (y, sb) in zip(a, b))
+
+
+def _drain_closed_stream(eng) -> dict:
+    """A streaming request closed after its first chunk leaves chunks in
+    flight on the graphs' stream; `drain_device` must leave it idle."""
+    from qwen_tts_tpu_torch.utils.timing import drain_device
+
+    async def first_chunk():
+        agen = eng.synthesize_streaming(TEXTS[2])
+        await agen.__anext__()
+        await agen.aclose()
+
+    asyncio.run(first_chunk())
+    busy = not eng._graphs.stream.query()
+    t0 = time.perf_counter()
+    drain_device()
+    res = {"busy_after_close": busy, "drain_ms": (time.perf_counter() - t0) * 1e3,
+           "idle_after_drain": eng._graphs.stream.query()}
+    assert res["idle_after_drain"], res
+    return res
+
+
+def _mesh_rank(rank: int, texts) -> dict:
+    """Phase 22 (b), one of two ranks on card 0 (module docstring)."""
+    import numpy as np
+    import torch
+    from qwen_tts_tpu_torch.engine.tts_engine import TTSConfig, TTSEngine
+    from qwen_tts_tpu_torch.models.decoder import decode_step, init_state
+    from qwen_tts_tpu_torch.ops import attention
+    from qwen_tts_tpu_torch.parallel.mesh import axis, make_mesh
+    from qwen_tts_tpu_torch.parallel.sharding import (
+        local_config,
+        shard_decoder_weights,
+        tensor_parallel,
+    )
+
+    t0 = time.perf_counter()
+    eng = TTSEngine(TTSConfig(warmup=False))
+    eng.initialize()                      # weights from the seed: the same on both ranks
+    dev = eng.device
+    out = {"rank": rank, "init_s": time.perf_counter() - t0}
+
+    # (1, 2): a tp-sharded talker step at position 300
+    mesh = make_mesh(dp=1, tp=2)
+    cfg, w = eng.model_config.talker, eng.weights.talker
+    lcfg, tp = local_config(cfg, mesh), tensor_parallel(mesh)
+    r = axis(mesh, "tp").index
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    full = random_state(cfg, 300, gen)
+    local = init_state(lcfg, "cuda")._replace(position=300)
+    heads = slice(r * lcfg.num_kv_heads, (r + 1) * lcfg.num_kv_heads)
+    local.k_cache.copy_(full.k_cache[:, heads])
+    local.v_cache.copy_(full.v_cache[:, heads])
+    token = torch.full((1,), 1234, dtype=torch.int64, device=dev)
+    _, tok_u, n_u = decode_step(cfg, w, full, token, attn_impl="pallas")
+    attention.reset_device_launches(dev)
+    _, tok_s, n_s = decode_step(lcfg, shard_decoder_weights(mesh, w), local, token,
+                                attn_impl="pallas", tp=tp)
+    out["tp"] = {"kv_heads": lcfg.num_kv_heads, "q_heads": lcfg.num_q_heads,
+                 "token": int(tok_s), "token_unsharded": int(tok_u),
+                 "normed_cos": _cos(n_s, n_u), "normed_max_abs": float((n_s - n_u).abs().max()),
+                 "decode_attention_launches": attention.device_launches(dev)}
+    # B3 at the rank's shape against its plain version, as phase 5 holds it
+    # at the talker's: the step above checks it only against B3 at KVH = 8
+    del full, local
+    out["tp"]["attention_vs_plain_max_abs"] = max(attention_vs_plain(lcfg, gen)[0])
+
+    # (2, 1): four texts dp-split, each rank's half against a batch of its own
+    mesh = make_mesh(dp=2, tp=1)
+    dp = axis(mesh, "dp")
+    attention.reset_device_launches(dev)
+    t0 = time.perf_counter()
+    res = eng.synthesize_batch(list(texts), mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = attention.device_launches(dev)
+    n = len(texts) // dp.size
+    eng._requests = dp.index * n                  # the same request numbers, one process
+    alone = eng.synthesize_batch(list(texts[dp.index * n:(dp.index + 1) * n]))
+    out["dp"] = {"index": dp.index, "results": len(res), "wall_s": wall,
+                 "decode_attention_launches": launches,
+                 "frames": [len(a) // eng.vocoder_config.hop_length for a, _ in res],
+                 "half_equals_alone": _same_audio(res[dp.index * n:(dp.index + 1) * n], alone),
+                 "digest": [float(np.abs(a).sum()) for a, _ in res]}
+    return out
+
+
+def mesh_phase(eng, card) -> dict:
+    """Phase 22 (module docstring)."""
+    import torch.distributed as dist
+    from qwen_tts_tpu_torch.ops import attention
+    from qwen_tts_tpu_torch.parallel.launch import run_ranks
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh
+
+    res = {"drain": _drain_closed_stream(eng)}
+    mc = eng.model_config
+    texts = list(MESH_TEXTS[:2])
+    base = eng._requests
+    m0 = eng.get_metrics()
+    ref = eng.synthesize_batch(texts)
+    eng._requests = base
+    mesh = make_mesh()
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    attention.reset_device_launches(eng.device)
+    t0 = time.perf_counter()
+    got = eng.synthesize_batch(texts, mesh=mesh)
+    wall = time.perf_counter() - t0
+    launches = attention.device_launches(eng.device)
+    dist.destroy_process_group()
+    m1 = eng.get_metrics()
+    steps = (m1["talker_steps"] - m0["talker_steps"]) // 2 // len(texts)   # a slot, one run
+    frames = steps - 1                              # after the CODEC_BOS step
+    want = mc.talker.num_layers * steps + mc.code_predictor.num_layers * 14 * frames
+    res["one_rank"] = {"equal": _same_audio(got, ref), "results": len(got), "wall_s": wall,
+                       "decode_attention_launches": launches, "expected_launches": want}
+    assert res["one_rank"]["equal"] and launches == want > 0, res
+    print(f"mesh (1, 1), one-rank NCCL world: synthesize_batch of {len(texts)} texts "
+          f"{json.dumps(res['one_rank'])}; a closed stream drained: {json.dumps(res['drain'])} "
+          f"{card}")
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_rank, 2, MESH_TEXTS, local_ranks=[0, 0], timeout_s=MESH_DEADLINE_S)
+    res["two_ranks"] = {"wall_s": time.perf_counter() - t0, "ranks": ranks}
+    for r in ranks:
+        t = r["tp"]
+        assert t["token"] == t["token_unsharded"] and t["normed_cos"] > 0.999, r
+        assert t["kv_heads"] == 4 and t["decode_attention_launches"] == mc.talker.num_layers, r
+        assert r["dp"]["results"] == len(MESH_TEXTS) and r["dp"]["half_equals_alone"], r
+        assert r["dp"]["decode_attention_launches"] > 0, r
+    assert ranks[0]["dp"]["digest"] == ranks[1]["dp"]["digest"], ranks
+    res["max_abs_err"] = max(r["tp"]["attention_vs_plain_max_abs"] for r in ranks)
+    res["launches"] = launches + sum(r["tp"]["decode_attention_launches"]
+                                     + r["dp"]["decode_attention_launches"] for r in ranks)
+    print(f"mesh, two ranks on one card over gloo: {json.dumps(res['two_ranks'])} {card}")
+    return res
+
+
 def _phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - _T0:.1f} s")
 
@@ -2922,7 +3188,18 @@ def main() -> int:
     del batcher
 
     _phase_done(20)
-    assert all(math.isfinite(e) for e in errs + [attn_err, gen_err, *qerr.values(),
+
+    # ── phase 21: incoherence folds through the decode-step kernel ──
+    fold = incoherence_phase(eng, gen, card)
+
+    _phase_done(21)
+
+    # ── phase 22: the (dp, tp) mesh ──
+    mesh = mesh_phase(eng, card)
+
+    _phase_done(22)
+    assert all(math.isfinite(e) for e in errs + [attn_err, mesh["max_abs_err"], gen_err,
+                                                 *qerr.values(),
                                                  *gerr.values(), slot_attn["max_abs_err"],
                                                  slot_attn["max_abs_err_slots"]])
     a300 = attn_t[300]
@@ -2937,7 +3214,8 @@ def main() -> int:
          "by_position": {str(p): v for p, v in step_pos.items()},
          "kernels_per_step": per_step, "grid": grid, "engine": engine_t,
          "code2wav_graph_launches": {dt: r["decode_step_launches"]
-                                     for dt, r in c2w_res["dtypes"].items()}},
+                                     for dt, r in c2w_res["dtypes"].items()},
+         "incoherence": fold},
         {"name": "decode_step[text LM: V=151936, tied head]", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/decode_step.cu",
          "replaces": "qwen_tts_tpu/ops/decode_step.py:98",
@@ -2964,13 +3242,15 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",
-         "launches": launches["decode_attention"], "max_abs_err": attn_err,
+         "launches": launches["decode_attention"],
+         "max_abs_err": max(attn_err, mesh["max_abs_err"]),
          "ms": a300["ms"], "plain_ms": a300["plain_ms"], "bound_ms": a300["bound_ms"],
          "bound_by": a300["bound_by"], "library_ms": a300["library_ms"],
          "call_ms": a300["call_ms"],
          "by_position": {str(p): v for p, v in attn_t.items()},
          "graph_path_launches": {b: r["decode_attention_launches"]
-                                 for b, r in backends.items()}},
+                                 for b, r in backends.items()},
+         "mesh_launches": mesh["launches"], "mesh": mesh},
         {"name": "decode_attention[device positions, 4 slots]", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/attention.cu",
          "replaces": "qwen_tts_tpu/ops/attention.py:29",

@@ -411,24 +411,60 @@ class TTSEngine:
             yield audio, self.sample_rate
             await asyncio.sleep(0)
 
-    def synthesize_batch(self, texts: list[str]) -> list[tuple[np.ndarray, int]]:
-        """Batched non-streaming synthesis (JAX `synthesize_batch` :738-809,
-        without its `mesh`): the B texts' prefixes as one batched prefill,
-        then one batched run of frames up to the longest text's cap
-        (`runtime/batch.py`); each text keeps its frames up to its EOS or
-        cap, decoded as `synthesize` decodes them. Text b takes the next
-        request number, which keys its sampling noise: its codes depend on
-        that number, not on the other texts or its row (they equal the same
-        text's in any batch of B rows, bit for bit; a batch of another size
-        rounds its products otherwise)."""
+    def synthesize_batch(self, texts: list[str], mesh=None) -> list[tuple[np.ndarray, int]]:
+        """Batched non-streaming synthesis (JAX `synthesize_batch` :738-809):
+        the B texts' prefixes as one batched prefill, then one batched run of
+        frames up to the longest text's cap (`runtime/batch.py`); each text
+        keeps its frames up to its EOS or cap, decoded as `synthesize`
+        decodes them. Text b takes the next request number, which keys its
+        sampling noise: its codes depend on that number, not on the other
+        texts or its row (they equal the same text's in any batch of B rows,
+        bit for bit; a batch of another size rounds its products otherwise).
+
+        With a `mesh` (`parallel/mesh.py`) every rank calls this with the
+        whole list: B must be divisible by the mesh's dp axis (ValueError
+        otherwise), dp rank d serves texts [d*B/dp, (d+1)*B/dp) as a batch of
+        its own, and the results are gathered over dp, so every rank returns
+        all B in order. Text b still takes request number base + b and every
+        rank's count advances by B, so a text's codes equal a one-process
+        batch of its dp rank's texts at those numbers. The tp axis
+        replicates: the engine's weights are whole on every rank."""
         self.initialize()
         if not texts:
             return []
+        B, dp = len(texts), None
+        if mesh is not None:
+            from ..parallel.mesh import axis
+
+            dp = axis(mesh, "dp")
+            if B % dp.size:
+                raise ValueError(f"batch size {B} must be divisible by the mesh dp axis "
+                                 f"({dp.size}); pad the text list")
+            on = self.weights.talker.embed.device
+            if on.type == "cuda" and on.index != torch.cuda.current_device():
+                raise RuntimeError(f"the engine's weights are on {on}, this rank's card is "
+                                   f"cuda:{torch.cuda.current_device()}: call make_mesh "
+                                   f"before the engine is built")
+        reqs = [self._new_request(t) for t in texts]
+        if dp is None:
+            results, self._frames_generated = self._batch(reqs)
+            return results
+        import torch.distributed as dist
+
+        n = B // dp.size
+        mine = self._batch(reqs[dp.index * n:(dp.index + 1) * n])
+        parts = [None] * dp.size
+        dist.all_gather_object(parts, mine, group=dp.group)
+        self._frames_generated = sum(kept for _, kept in parts)
+        return [r for results, _ in parts for r in results]
+
+    def _batch(self, reqs: list) -> tuple[list[tuple[np.ndarray, int]], int]:
+        """The numbered requests (`_new_request`) as one batch: (each one's
+        audio, the frames kept in all)."""
         from ..runtime.batch import batched_frames, batched_prefill
 
         mc, cfg, dev = self.model_config, self.config, self.device
-        reqs = [self._new_request(t) for t in texts]
-        B, Tpad, n = len(texts), max(r[1] for r in reqs), max(r[2] for r in reqs)
+        B, Tpad, n = len(reqs), max(r[1] for r in reqs), max(r[2] for r in reqs)
         if PREFIX_ROWS + 1 + n > cfg.max_seq_len:
             raise ValueError(f"positions [0, {PREFIX_ROWS + 1 + n}) exceed max_seq_len "
                              f"{cfg.max_seq_len}")
@@ -465,8 +501,7 @@ class TTSEngine:
             keep = min(int(valid_np[b].sum()), r[2])
             kept += keep
             results.append(self._decode_to_audio([codes_np[b, i] for i in range(keep)]))
-        self._frames_generated = kept
-        return results
+        return results, kept
 
     # ── what every path shares ───────────────────────────────────────────
 

@@ -36,12 +36,15 @@ def cp_predict(
     attn_impl: str = "dense",
     return_logits: bool = False,
     state: DecodeState | None = None,   # reset in place; None: a fresh one
+    tp=None,                            # a tensor-parallel rank's collectives
 ):
     """Predict all 16 codebook groups of one frame, for one stream
     (`talker_hidden [H]`) or B slots (`[B, H]`, a state of B slots; each
     slot's rows of every product are its own). Returns `[(B,) 16]` int64
     `[first_token, predicted_1..15]` (and the `[(B,) 15, 2048]` f32 logits
-    when `return_logits`)."""
+    when `return_logits`). On a tensor-parallel rank `cfg`, `w` and the
+    state are its shard (`parallel/sharding.py::shard_cp_weights`): each
+    head's vocab shards are joined before the sample."""
     one = talker_hidden.dim() == 1
     hidden = talker_hidden[None] if one else talker_hidden
     if state is None:
@@ -51,11 +54,14 @@ def cp_predict(
     # 1-element index: a 0-d one is read back to the host (a device sync)
     first_embed = talker_embed_table[first_token.reshape(-1)].float()
     prefill = torch.stack([hidden.float(), first_embed], dim=1)
-    state, normed = forward_chunk(cfg, w.decoder, state, prefill[0] if one else prefill)
+    state, normed = forward_chunk(cfg, w.decoder, state, prefill[0] if one else prefill,
+                                  tp=tp)
     hidden = normed[..., -1, :]
     tokens, all_logits = [], []
     for g in range(num_groups):
         logits = matmul(hidden, w.lm_heads[g])
+        if tp is not None:
+            logits = tp.gather_vocab(logits)
         token = sample_logits(logits, do_sample, temperature, top_k,
                               None if noise is None else noise[..., g, :])
         tokens.append(token)
@@ -64,7 +70,7 @@ def cp_predict(
             embed = w.codec_embeds[g][token.reshape(-1)].float()
             state, normed = forward_chunk(cfg, w.decoder, state,
                                           embed if one else embed[:, None],
-                                          attn_impl=attn_impl)
+                                          attn_impl=attn_impl, tp=tp)
             hidden = normed[..., 0, :]
     codes = torch.stack([first_token.reshape(token.shape).to(torch.int64), *tokens], dim=-1)
     if return_logits:

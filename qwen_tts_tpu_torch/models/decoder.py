@@ -266,10 +266,16 @@ def _dense_mixed_attention(
     return attn.reshape(B, h_q, T, d).permute(0, 2, 1, 3).reshape(B, T, h_q * d)
 
 
+def _check_tp(tp, attn_impl: str) -> None:
+    if tp is not None and attn_impl == "mega":
+        raise ValueError('the decode-step kernel computes whole layers; a tensor-parallel '
+                         'rank runs attn_impl "pallas" or "dense"')
+
+
 def _layer_forward(cfg: DecoderConfig, lw: LayerWeights, x: torch.Tensor,
                    state: DecodeState, li: int, start_pos: int, cos: torch.Tensor,
                    sin: torch.Tensor, attn_impl: str = "dense", mm=dense_mm,
-                   positions: torch.Tensor | None = None):
+                   positions: torch.Tensor | None = None, tp=None):
     """Layer `li` over a T-token chunk of each of B slots, `x [B, T, H]`; the
     caches are only read. With device `positions [B]` (T == 1) the
     attention is the decode-attention kernel (`attn_impl` "pallas", bf16
@@ -277,6 +283,9 @@ def _layer_forward(cfg: DecoderConfig, lw: LayerWeights, x: torch.Tensor,
     is the kernel at that position ("pallas", T == 1, bf16 cache) or the
     dense attention over the rows below it. `mm(x, w, s)` is the matrix
     product, over the B*T rows. `cos`/`sin` are `[B or 1, T, D//2]`.
+    On a tensor-parallel rank (`tp`, `parallel/sharding.py`) the `wo` and
+    `w_down` outputs, partial products over the rank's heads and columns,
+    are summed over the tp group before each residual add.
     Returns (x [B,T,H] f32, k_new, v_new [B, KVH, T, D] f32 — the chunk's
     cache columns)."""
     B, T, H = x.shape
@@ -308,11 +317,13 @@ def _layer_forward(cfg: DecoderConfig, lw: LayerWeights, x: torch.Tensor,
         attn = _dense_mixed_attention(
             cfg, q, k, v, k_cache[:, li], v_cache[:, li], start_pos,
             ks[:, li] if kv8 else None, vs[:, li] if kv8 else None)
-    x = x + mm(attn.reshape(B * T, h_q * d), *layer_mat(lw, "wo")).reshape(B, T, H)
+    o = mm(attn.reshape(B * T, h_q * d), *layer_mat(lw, "wo"))
+    x = x + (o if tp is None else tp.all_reduce(o)).reshape(B, T, H)
     gate_up = mm(rms_norm(x.reshape(B * T, H), lw.post_norm, cfg.rms_eps),
                  *layer_mat(lw, "w_gate_up"))
     I = cfg.intermediate_size
-    x = x + mm(F.silu(gate_up[:, :I]) * gate_up[:, I:], *layer_mat(lw, "w_down")).reshape(B, T, H)
+    down = mm(F.silu(gate_up[:, :I]) * gate_up[:, I:], *layer_mat(lw, "w_down"))
+    x = x + (down if tp is None else tp.all_reduce(down)).reshape(B, T, H)
     return x, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
@@ -362,12 +373,15 @@ def _flat_rows(state: DecodeState, positions: torch.Tensor) -> torch.Tensor:
 
 def forward_layers(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
                    x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                   attn_impl: str = "dense", mm=dense_mm, device_pos: bool = False):
+                   attn_impl: str = "dense", mm=dense_mm, device_pos: bool = False,
+                   tp=None):
     """All layers over a chunk `x [T, H]` (one stream) or `[B, T, H]` (B
     slots) f32 with the given rope rows; writes the chunk's cache columns
     in place, each after its layer's attention. With `device_pos` (T == 1)
     the step runs at `state.pos` and advances it; otherwise at the host
-    position, after which `state.pos`, if any, holds the new one. Returns
+    position, after which `state.pos`, if any, holds the new one. `tp`
+    (`parallel/sharding.py::TensorParallel`) makes each layer sum its
+    `wo` and `w_down` outputs over a tensor-parallel group. Returns
     (state, normed) in x's shape."""
     one = x.dim() == 2
     xb = x[None] if one else x
@@ -387,7 +401,7 @@ def forward_layers(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
         _check_room(cfg, pos, T)
     for li in range(cfg.num_layers):
         xb, k_new, v_new = _layer_forward(cfg, layer_slice(w.layers, li), xb, state, li,
-                                          pos, cos, sin, attn_impl, mm, positions)
+                                          pos, cos, sin, attn_impl, mm, positions, tp)
         _write_columns(state, li, pos, k_new, v_new, rows)
     normed = rms_norm(xb, w.final_norm, cfg.rms_eps)
     if device_pos:
@@ -399,7 +413,7 @@ def forward_layers(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
 
 def forward_chunk(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
                   embeds: torch.Tensor, attn_impl: str = "dense",
-                  mrope_pos: Sequence[int] | None = None):
+                  mrope_pos: Sequence[int] | None = None, tp=None):
     """Run a T-token chunk through all layers: `embeds [T, H]` for one
     stream, `[B, T, H]` for a state of B slots. Returns (state, normed
     [(B,) T, H] f32), `normed` being the post-final-RMSNorm hidden state.
@@ -407,8 +421,11 @@ def forward_chunk(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
     "mega" (the decode-step kernel when T == 1, one stream). A
     single-token chunk of a state with device positions runs at them
     (`mrope_pos` then gives, less the host position, the sections'
-    offsets); any other at the host position."""
+    offsets); any other at the host position. On a tensor-parallel rank
+    `w` and `cfg` are its shard (`parallel/sharding.py`) and `tp` its
+    collectives; the decode-step kernel does not run there."""
     T = embeds.shape[-2]
+    _check_tp(tp, attn_impl)
     if attn_impl == "mega" and T == 1 and embeds.dim() == 2:
         from ..ops.decode_step import megakernel_forward
 
@@ -420,27 +437,31 @@ def forward_chunk(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
         deltas = None if mrope_pos is None else [int(m) - state.position for m in mrope_pos]
         cos, sin = device_rope_rows(cfg, w.rope, state.pos.reshape(-1), deltas)
         return forward_layers(cfg, w, state, embeds.float(), cos, sin, attn_impl,
-                              device_pos=True)
+                              device_pos=True, tp=tp)
     _check_room(cfg, state.position, T)
     cos, sin = rope_rows(cfg, w.rope, state.position, T, mrope_pos)
-    return forward_layers(cfg, w, state, embeds.float(), cos, sin, attn_impl)
+    return forward_layers(cfg, w, state, embeds.float(), cos, sin, attn_impl, tp=tp)
 
 
-def lm_head_logits(w: DecoderWeights, normed: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(w: DecoderWeights, normed: torch.Tensor, tp=None) -> torch.Tensor:
     """Codec LM head logits, f32; an int8 head (`lm_head_s` set) is upcast
-    and its per-channel scale applied to the logits."""
+    and its per-channel scale applied to the logits. On a tensor-parallel
+    rank (`tp`) the head is its vocab shard and the shards' logits are
+    joined, so every rank has the whole vocab."""
     logits = matmul(normed, w.lm_head)
     s = getattr(w, "lm_head_s", None)
-    return logits if s is None else logits * s
+    logits = logits if s is None else logits * s
+    return logits if tp is None else tp.gather_vocab(logits)
 
 
 def decode_step_with_embed(cfg: DecoderConfig, w: DecoderWeights,
                            state: DecodeState, embed: torch.Tensor,
                            attn_impl: str = "dense",
-                           mrope_pos: Sequence[int] | None = None):
+                           mrope_pos: Sequence[int] | None = None, tp=None):
     """One decode step from an embedding [H] (one stream) or [B, H] (B
-    slots). Returns (state, greedy token (int64, 0-d or [B]), normed
-    [(B,) H] f32)."""
+    slots); `tp` as in `forward_chunk`. Returns (state, greedy token
+    (int64, 0-d or [B]), normed [(B,) H] f32)."""
+    _check_tp(tp, attn_impl)
     if attn_impl == "mega" and embed.dim() == 1:
         from ..ops.decode_step import megakernel_forward
 
@@ -448,24 +469,24 @@ def decode_step_with_embed(cfg: DecoderConfig, w: DecoderWeights,
                                                    mrope_pos=mrope_pos)
         return state, torch.argmax(logits), normed
     state, normed = forward_chunk(cfg, w, state, embed[..., None, :],
-                                  attn_impl=attn_impl, mrope_pos=mrope_pos)
-    logits = lm_head_logits(w, normed)[..., 0, :]
+                                  attn_impl=attn_impl, mrope_pos=mrope_pos, tp=tp)
+    logits = lm_head_logits(w, normed, tp)[..., 0, :]
     return state, torch.argmax(logits, dim=-1), normed[..., 0, :]
 
 
 def decode_step(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
                 token_id: torch.Tensor, attn_impl: str = "dense",
-                mrope_pos: Sequence[int] | None = None):
+                mrope_pos: Sequence[int] | None = None, tp=None):
     """One decode step from a codec token id (a tensor of one element, on
     the weights' device). Returns (state, greedy token, normed [H] f32)."""
     embed = w.embed[token_id.reshape(1)][0]
     return decode_step_with_embed(cfg, w, state, embed, attn_impl=attn_impl,
-                                  mrope_pos=mrope_pos)
+                                  mrope_pos=mrope_pos, tp=tp)
 
 
 def prefill(cfg: DecoderConfig, w: DecoderWeights, state: DecodeState,
-            embeds: torch.Tensor):
+            embeds: torch.Tensor, tp=None):
     """Dense causal prefill of T embeddings [T, H]. Returns (state,
     last greedy token, last normed [H] f32)."""
-    state, normed = forward_chunk(cfg, w, state, embeds)
-    return state, torch.argmax(lm_head_logits(w, normed[-1:])[0]), normed[-1]
+    state, normed = forward_chunk(cfg, w, state, embeds, tp=tp)
+    return state, torch.argmax(lm_head_logits(w, normed[-1:], tp)[0]), normed[-1]

@@ -59,7 +59,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
             "qwen_tts_tpu_torch.runtime.continuous", "qwen_tts_tpu_torch.models.text_lm",
             "qwen_tts_tpu_torch.demos.local_agent", "qwen_tts_tpu_torch.demos.tts",
             "qwen_tts_tpu_torch.demos.pipeline", "qwen_tts_tpu_torch.demos.ws_client",
-            "qwen_tts_tpu_torch.demos.voice_agent"} <= set(names)
+            "qwen_tts_tpu_torch.demos.voice_agent", "qwen_tts_tpu_torch.utils.timing",
+            "qwen_tts_tpu_torch.parallel.mesh", "qwen_tts_tpu_torch.parallel.sharding",
+            "qwen_tts_tpu_torch.parallel.launch",
+            "qwen_tts_tpu_torch.core.incoherence"} <= set(names)
 
 
 def test_port_imports_no_file_or_tokenizer_library_at_module_level():
@@ -113,6 +116,18 @@ def test_engine_defaults_to_the_gpu():
     eng = TTSEngine(TTSConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         eng.initialize()
+
+
+def test_mesh_defaults_to_the_gpu():
+    import torch.distributed as dist
+
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default mesh binds it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not dist.is_initialized()
 
 
 # ── the serving slice's copies and entry points ─────────────────────────────
