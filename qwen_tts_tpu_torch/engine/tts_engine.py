@@ -50,7 +50,12 @@ unread chunks) in tensors of that stream and restores the caller's, so
 live streams of one engine interleave freely and each yields what it
 yields alone. With one live stream nothing is copied. A capture or replay
 that fails raises; nothing falls back to the per-frame generator. On the CPU the
-same bodies run eagerly, in the same order. `fused_chunks=False` is JAX's
+same bodies run eagerly, in the same order. While a profiler records, a
+request's phases record spans (`utils/timing.py::span`) numbered by the
+request: `tts.setup` (tokenizer, bucket, graphs of a new shape),
+`tts.enqueue`, `tts.read` and `tts.tail_audio` (the cut last chunk's
+eager decode), beside the graphs' `tts.launch`, `tts.wait` and
+`tts.capture`. `fused_chunks=False` is JAX's
 per-frame generator: one `frame_step` a frame, the host checking the
 token for EOS before each, so no frame is computed past EOS or the cap;
 its frames are buffered into the same chunks, with the audio the fused
@@ -123,6 +128,7 @@ from ..vocoder.code2wav_fast import code2wav_apply_packed, pack_code2wav_weights
 from ..vocoder.loader import load_code2wav, load_vocoder
 from ..vocoder.model import VocoderConfig, init_vocoder_weights, vocoder_decode
 from ..runtime.chunk_graphs import RING, ChunkGraphs, Slot
+from ..utils.timing import span
 from .tokenizer import encode_tts_prompt, load_tokenizer
 
 _MASK64 = (1 << 64) - 1
@@ -218,8 +224,9 @@ class _Stream:
     enqueued and has not read, and while another request holds the state,
     its own copy of it (`parked`) and of its unread chunks' outputs."""
 
-    def __init__(self, Tpad: int):
+    def __init__(self, Tpad: int, request: int):
         self.Tpad = Tpad
+        self.request = request                # the engine's request number
         self.pending: list[tuple] = []    # (slot, n, first frame) in the ring, unread
         self.held: dict[tuple, Slot] = {}  # (slot, first frame) -> parked outputs
         self.parked: dict | None = None
@@ -601,7 +608,7 @@ class TTSEngine:
         index and length, Code2Wav's context codes, the uniform draws, and
         the ring of host slots. Graphs themselves are captured by `_prepare`."""
         mc, dev = self.model_config, self.device
-        self._graphs = ChunkGraphs(dev)
+        self._graphs = ChunkGraphs(dev, "tts")
         self._talker = self._talker_cache()
         self._pos = 0                      # the talker's host position
         self._tok = torch.zeros((), dtype=torch.int64, device=dev)
@@ -773,7 +780,7 @@ class TTSEngine:
         carried tensors, the host position and ring slot."""
         g, st, p = self._graphs, self._talker, self._pos
         for slot, n, base in s.pending:
-            g.wait(slot)
+            g.wait(slot, s.request)
             out = self._out[n][slot]
             s.held[(slot, base)] = Slot(out.codes.clone(), out.valid.clone(), out.audio.clone())
         s.pending.clear()
@@ -819,64 +826,68 @@ class TTSEngine:
 
     def _enqueue_first(self, content: np.ndarray, request: int, s: _Stream) -> tuple:
         """Enqueue the first chunk (ids → one frame and its audio) into slot 0."""
-        self._acquire(s)
-        self._pos = 0
-        self._check_room(PREFIX_ROWS + 2)
-        g, Tpad = self._graphs, s.Tpad
-        g.wait(0)           # the slot's last reader, and the ids' last upload, are done
-        host = self._ids[Tpad][0]
-        host.zero_()
-        host[:len(content)] = torch.from_numpy(np.asarray(content, dtype=np.int64))
-        host[Tpad] = len(content)
-        with g.on_stream():
-            self._draw(request, 0, 1, self._uniform[1])
-            g.replay(("first", 1, Tpad, 0, 0), lambda: self._body(Tpad, 1, 0, True, True))
-            g.record(0)
-        self._slot = 0
-        self._pos = PREFIX_ROWS + 2
-        self._count_steps(1, first=True)
-        self._talker_state = self._talker._replace(position=self._pos)
-        s.pending.append((0, 1, 0))
-        return 0, 1, 0
+        with span("tts.enqueue", request):
+            self._acquire(s)
+            self._pos = 0
+            self._check_room(PREFIX_ROWS + 2)
+            g, Tpad = self._graphs, s.Tpad
+            g.wait(0, request)  # the slot's last reader, and the ids' last upload, are done
+            host = self._ids[Tpad][0]
+            host.zero_()
+            host[:len(content)] = torch.from_numpy(np.asarray(content, dtype=np.int64))
+            host[Tpad] = len(content)
+            with g.on_stream():
+                self._draw(request, 0, 1, self._uniform[1])
+                g.replay(("first", 1, Tpad, 0, 0), lambda: self._body(Tpad, 1, 0, True, True),
+                         request)
+                g.record(0)
+            self._slot = 0
+            self._pos = PREFIX_ROWS + 2
+            self._count_steps(1, first=True)
+            self._talker_state = self._talker._replace(position=self._pos)
+            s.pending.append((0, 1, 0))
+            return 0, 1, 0
 
     def _enqueue_chunk(self, n: int, request: int, frame0: int, s: _Stream,
                        audio: bool = True) -> tuple:
         """Enqueue the n frames from `frame0` (with their audio) into the
         next slot of the ring (frames-only: the size's one slot)."""
-        self._acquire(s)
-        self._check_room(n)
-        g, Tpad = self._graphs, s.Tpad
-        slot = (self._slot + 1) % RING if audio else 0
-        ctx = 0
-        if audio and self._c2w and self.vocoder_weights is not None:
-            ctx = 1 if frame0 == 1 else n
-        key = ("chunk" if audio else "frames", n, Tpad, slot, ctx)
-        with g.on_stream():
-            self._draw(request, frame0, n, self._uniform[n])
-            g.replay(key, lambda: self._body(Tpad, n, slot, False, audio, ctx))
-            g.record(slot)
-        if audio:
-            self._slot = slot
-        self._pos += n
-        self._count_steps(n)
-        self._talker_state = self._talker._replace(position=self._pos)
-        s.pending.append((slot, n, frame0))
-        return slot, n, frame0
+        with span("tts.enqueue", request):
+            self._acquire(s)
+            self._check_room(n)
+            g, Tpad = self._graphs, s.Tpad
+            slot = (self._slot + 1) % RING if audio else 0
+            ctx = 0
+            if audio and self._c2w and self.vocoder_weights is not None:
+                ctx = 1 if frame0 == 1 else n
+            key = ("chunk" if audio else "frames", n, Tpad, slot, ctx)
+            with g.on_stream():
+                self._draw(request, frame0, n, self._uniform[n])
+                g.replay(key, lambda: self._body(Tpad, n, slot, False, audio, ctx), request)
+                g.record(slot)
+            if audio:
+                self._slot = slot
+            self._pos += n
+            self._count_steps(n)
+            self._talker_state = self._talker._replace(position=self._pos)
+            s.pending.append((slot, n, frame0))
+            return slot, n, frame0
 
     def _read(self, s: _Stream, slot: int, n: int, base: int):
         """A chunk's outputs (codes int32 [n, 16], valid [n], audio [n * hop]):
         from its parked copy, or from its slot once the slot's event passed."""
-        held = s.held.pop((slot, base), None)
-        if held is None:
-            if self._owner is not s:
-                raise RuntimeError("a stream read a chunk that neither its ring slot nor "
-                                   "its parked state holds")
-            self._graphs.wait(slot)
-            held = self._out[n][slot]
-            s.pending.remove((slot, n, base))
-        hop = self.vocoder_config.hop_length
-        return (held.codes.numpy().astype(np.int32), held.valid.numpy().copy(),
-                held.audio[:n * hop].numpy().copy())
+        with span("tts.read", s.request):
+            held = s.held.pop((slot, base), None)
+            if held is None:
+                if self._owner is not s:
+                    raise RuntimeError("a stream read a chunk that neither its ring slot nor "
+                                       "its parked state holds")
+                self._graphs.wait(slot, s.request)
+                held = self._out[n][slot]
+                s.pending.remove((slot, n, base))
+            hop = self.vocoder_config.hop_length
+            return (held.codes.numpy().astype(np.int32), held.valid.numpy().copy(),
+                    held.audio[:n * hop].numpy().copy())
 
     def _generate_audio_chunks(self, text: str, chunk_size: int):
         """The fused streaming loop (JAX `_generate_audio_chunks` :836-931):
@@ -887,11 +898,8 @@ class TTSEngine:
         graph; a chunk cut by EOS or the cap yields its kept frames' audio
         (`_terminal_chunk_audio`). Frames past EOS or the cap are computed,
         counted in `get_metrics()`, and dropped."""
-        content, Tpad, max_frames, req = self._new_request(text)
-        s = _Stream(Tpad)
+        content, max_frames, req, s = self._open(text, chunk_size)
         try:
-            self._acquire(s)
-            self._prepare(Tpad, chunk_size)
             q = deque([self._enqueue_first(content, req, s)])
             planned = 1
 
@@ -915,7 +923,9 @@ class TTSEngine:
                 self._frames_generated = base + keep
                 if keep < n:
                     if keep > 0:
-                        yield self._terminal_chunk_audio(frames, n, prev), frames
+                        with span("tts.tail_audio", req):
+                            tail = self._terminal_chunk_audio(frames, n, prev)
+                        yield tail, frames
                     return
                 if self.vocoder_weights is None:       # silence, of JAX's length
                     audio = self._decode_to_audio(frames)[0]
@@ -927,6 +937,22 @@ class TTSEngine:
                     enqueue()                              # refill to depth 2
         finally:
             self._release(s)
+
+    def _open(self, text: str, chunk_size: int, audio: bool = True):
+        """A fused request's set-up (span `tts.setup`): tokenize and number
+        it, give it the graphs' state, capture the graphs of a new shape.
+        Returns (content ids, frame cap, request number, its `_Stream`)."""
+        with span("tts.setup") as setup:
+            content, Tpad, max_frames, req = self._new_request(text)
+            setup.ident = req
+            s = _Stream(Tpad, req)
+            try:
+                self._acquire(s)
+                self._prepare(Tpad, chunk_size, audio)
+            except BaseException:
+                self._release(s)
+                raise
+        return content, max_frames, req, s
 
     def _terminal_chunk_audio(self, frames: list[np.ndarray], n: int, prev):
         """Audio of a chunk cut short (JAX `_terminal_chunk_audio`): with
@@ -956,11 +982,8 @@ class TTSEngine:
         `chunk_size` frames a chunk, each read before the next is enqueued.
         Audio outside the graphs: "fast" through `_decode_to_audio`; Code2Wav
         with the previous chunk as context (`_context_chunk_audio`)."""
-        content, Tpad, max_frames, req = self._new_request(text)
-        s = _Stream(Tpad)
+        content, max_frames, req, s = self._open(text, chunk_size, audio=False)
         try:
-            self._acquire(s)
-            self._prepare(Tpad, chunk_size, audio=False)
             produced, alive, prev = 0, True, None
             while alive and produced < max_frames:
                 first = produced == 0

@@ -45,6 +45,7 @@ from ..runtime.chunk_graphs import ChunkGraphs
 from ..models.decoder import init_state, prefill
 from ..ops import decode_step
 from ..runtime.generate import generate_tokens
+from ..utils.timing import span
 
 TEXT_LM_CONFIG = DecoderConfig(
     num_layers=28,
@@ -159,12 +160,14 @@ def chunk_lengths(max_new_tokens: int, chunk: int) -> tuple[int, ...]:
 
 class _Stream:
     """One `generate_stream`'s claim on the LM's static state: `parked`
-    holds its copy of the state while another stream holds it."""
+    holds its copy of the state while another stream holds it; `number`
+    names its spans."""
 
-    __slots__ = ("parked",)
+    __slots__ = ("parked", "number")
 
-    def __init__(self):
+    def __init__(self, number: int = 0):
         self.parked: dict | None = None
+        self.number = number
 
 
 class TextLM:
@@ -193,7 +196,11 @@ class TextLM:
     static state is held by one stream at a time, and a stream that resumes
     after another ran parks the holder's (its cache rows, carried token and
     position) and restores its own, as the TTS engine does for its live
-    streams. On the CPU the same bodies run eagerly, in the same order."""
+    streams. On the CPU the same bodies run eagerly, in the same order.
+    While a profiler records, a stream's prefill and each chunk record the
+    spans `lm.prefill` and `lm.chunk` (`utils/timing.py::span`), numbered
+    by the stream (a chunk's length in its detail), beside the graphs'
+    `lm.launch` and `lm.wait`."""
 
     def __init__(self, weights: DecoderWeights, cfg: DecoderConfig = TEXT_LM_CONFIG,
                  tokenizer=None, attn_impl: str = "dense", kv_cache: str = "bf16",
@@ -211,8 +218,9 @@ class TextLM:
         self.attn_impl = attn_impl
         self.kv_dtype = torch.int8 if kv_cache == "int8" else torch.bfloat16
         self.steps = 0   # single-token decode steps run (the prefill's token excluded)
+        self._streams = 0   # streams begun, which number them
         dev = self.device
-        self._graphs = g = ChunkGraphs(dev)
+        self._graphs = g = ChunkGraphs(dev, "lm")
         self._state = init_state(cfg, dev, self.kv_dtype, device_pos=attn_impl != "mega")
         self._pos = 0                                   # the host position
         self._tok = torch.zeros(1, dtype=torch.long, device=dev)   # the carried token
@@ -299,13 +307,14 @@ class TextLM:
         `chunk_lengths` ahead of traffic (on the CPU: nothing to capture)."""
         self._prepare(prompt_len, tuple(chunk_lengths))
 
-    def _replay(self, key: tuple, body) -> None:
-        """Enqueue a graph and wait until its outputs are on the host."""
+    def _replay(self, key: tuple, body, ident: int) -> None:
+        """Enqueue a graph for stream `ident` and wait until its outputs are
+        on the host."""
         g = self._graphs
         with g.on_stream():
-            g.replay(key, body)
+            g.replay(key, body, ident)
             g.record(0)
-        g.wait(0)
+        g.wait(0, ident)
 
     # ── parking: several streams on one static state ─────────────────────
 
@@ -368,16 +377,17 @@ class TextLM:
         self._ids[P][0].copy_(torch.tensor(ids, dtype=torch.long))
         if self._graphs.cuda:     # the caller's work on the weights comes first
             self._graphs.stream.wait_stream(torch.cuda.current_stream(self.device))
-        self._replay(("prefill", P), lambda: self._prefill_body(P))
+        self._replay(("prefill", P), lambda: self._prefill_body(P), s.number if s else 0)
         self._pos = P
         return int(self._first[0])
 
-    def _chunk(self, n: int) -> list[int]:
-        """Replay the graph of n steps from the carried token; their ids."""
+    def _chunk(self, n: int, ident: int = 0) -> list[int]:
+        """Replay the graph of n steps from the carried token (for stream
+        `ident`); their ids."""
         if self._pos + n > self.cfg.max_seq_len:
             raise ValueError(f"positions [{self._pos}, {self._pos + n}) exceed max_seq_len "
                              f"{self.cfg.max_seq_len}")
-        self._replay(("chunk", n), lambda: self._chunk_body(n))
+        self._replay(("chunk", n), lambda: self._chunk_body(n), ident)
         self._pos += n
         self.steps += n
         return self._out[n].tolist()
@@ -405,9 +415,11 @@ class TextLM:
         `generate`'s, whatever the chunk size."""
         if max_new_tokens < 1:
             return
-        me = _Stream()
+        self._streams += 1
+        me = _Stream(self._streams)
         try:
-            first = self._prefill(prompt_ids, chunk_lengths(max_new_tokens, chunk), me)
+            with span("lm.prefill", me.number):
+                first = self._prefill(prompt_ids, chunk_lengths(max_new_tokens, chunk), me)
             if first in stop_ids:
                 return
             yield [first]
@@ -415,7 +427,8 @@ class TextLM:
             while produced < max_new_tokens:
                 n = min(chunk, max_new_tokens - produced)
                 self._acquire(me)
-                host = self._chunk(n)
+                with span("lm.chunk", me.number, n):
+                    host = self._chunk(n, me.number)
                 for i, t in enumerate(host):
                     if t in stop_ids:
                         if i:

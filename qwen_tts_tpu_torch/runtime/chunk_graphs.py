@@ -14,6 +14,13 @@ the next two, so a slot is rewritten only after the host read it.
 On the CPU nothing is captured: `replay` runs the body at once, into
 ordinary host tensors, and the events are no-ops. The body, the buffers and
 the order of the work are the same.
+
+A set of graphs given an owner ("tts" for the engine, "lm" for the text
+LM) names its spans (`utils/timing.py::span`) by it: `<owner>.launch`
+around a replay's enqueue (`cudaGraphLaunch`), `<owner>.wait` around the
+host blocked on a slot's event, `<owner>.capture` around a capture (one
+after set-up means a graph was built on the serving path). Graphs with no
+owner (the batcher's) record no spans.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from ..models.decoder import DecodeState
 from ..ops.decode_step import Owned
+from ..utils.timing import span
 
 RING = 3   # output slots: one read by the host while two more are in flight
 
@@ -41,8 +49,9 @@ class Slot(NamedTuple):
 class ChunkGraphs:
     """Graphs by key, captured on one stream into one memory pool."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, owner: str | None = None):
         self.device = device
+        self.owner = owner
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
@@ -83,33 +92,41 @@ class ChunkGraphs:
         dropped object holding graphs (another engine's, in a reference
         cycle) would destroy them mid-capture, which invalidates it. A
         capture that fails raises."""
-        graph = torch.cuda.CUDAGraph()
-        self.owned.forget()
-        self.owned.frozen = True
-        collecting = gc.isenabled()
-        gc.collect()
-        gc.disable()
-        try:
-            with self.owned.active(carried=carried):
-                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                      capture_error_mode="thread_local"):
-                    body()
-        finally:
-            if collecting:
-                gc.enable()
-        self.owned.forget()
-        self.graphs[key] = graph
+        with self._span("capture", detail=key):
+            graph = torch.cuda.CUDAGraph()
+            self.owned.forget()
+            self.owned.frozen = True
+            collecting = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                with self.owned.active(carried=carried):
+                    with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                          capture_error_mode="thread_local"):
+                        body()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.owned.forget()
+            self.graphs[key] = graph
 
-    def replay(self, key: tuple, body: Callable[[], None]) -> None:
-        """Enqueue the graph of `key` on the stream (on the CPU: run `body`).
-        A replay advances the kernels' position arrays without the host, so
-        the host's record of them is dropped."""
+    def _span(self, kind: str, ident: int = 0, detail=""):
+        """The span `<owner>.<kind>`; none for graphs with no owner."""
+        if self.owner is None:
+            return contextlib.nullcontext()
+        return span(f"{self.owner}.{kind}", ident, detail)
+
+    def replay(self, key: tuple, body: Callable[[], None], ident: int = 0) -> None:
+        """Enqueue the graph of `key` on the stream (on the CPU: run `body`)
+        for request `ident`. A replay advances the kernels' position arrays
+        without the host, so the host's record of them is dropped."""
         self.replays += 1
-        if not self.cuda:
-            body()
-            return
-        with torch.cuda.stream(self.stream):
-            self.graphs[key].replay()
+        with self._span("launch", ident, key):
+            if not self.cuda:
+                body()
+                return
+            with torch.cuda.stream(self.stream):
+                self.graphs[key].replay()
         self.owned.forget()
 
     def record(self, slot: int) -> None:
@@ -117,10 +134,12 @@ class ChunkGraphs:
         if self.cuda:
             self._events[slot].record(self.stream)
 
-    def wait(self, slot: int) -> None:
-        """Block until slot `slot` holds what was last enqueued into it."""
-        if self.cuda:
-            self._events[slot].synchronize()
+    def wait(self, slot: int, ident: int = 0) -> None:
+        """Block until slot `slot` holds what was last enqueued into it (for
+        request `ident`)."""
+        with self._span("wait", ident, slot):
+            if self.cuda:
+                self._events[slot].synchronize()
 
     def launches(self) -> int:
         """The decode kernel's launches by the graphs and their warm-up runs

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's main path goes, on one NVIDIA GPU.
 
-    python3 tools/profile_port.py [--root DIR] [--positions P,...] [profile] [phases]
-                                  [positions] [forms] [steps] [vocoder] [requests]
-                                  [agent] [bursts] [field=value ...]
+    python3 tools/profile_port.py [--root DIR] [--positions P,...] [profile] [positions]
+                                  [forms] [steps] [vocoder] [requests] [agent] [bursts]
+                                  [field=value ...]
 
-With no part named, the first three run, at full width (Qwen3-TTS-12Hz-0.6B,
+With no part named, the first two run, at full width (Qwen3-TTS-12Hz-0.6B,
 random weights from seed 0, `TTSConfig()` on the card, with any
 `field=value` arguments set on it, e.g. `quantize=int8 kv_cache=int8`).
 `--root DIR` imports the port from the tree at DIR instead of this checkout
@@ -18,13 +18,10 @@ parent.
              wall time with and without the profiler, device busy time,
              kernel launches and host time in `cudaLaunchKernel`,
              device-to-host copies (each one waits on the device), device
-             time by kernel; then one talker step at position 100: device
+             time by kernel, and the program's spans (`utils/timing.py::span`:
+             count, total and median ms by name; a tree without spans
+             prints none); then one talker step at position 100: device
              time and launches by kernel, and the host time to enqueue it.
-  phases     the phases of three 14-word streaming requests on the eager
-             loop (`fused_chunks=False`, on the engine's weights), each timed
-             with `torch.cuda.synchronize()` around it: text projection,
-             talker prefill (dense T=8 + the first kernel step), one
-             `cp_predict`, one talker step, one vocoder chunk, and TTFC.
   positions  the talker step, kernel against plain version, over a random
              cache at positions 1000, 4095 and 8191 (CUDA events).
   forms      one talker step for each weight form (bf16, int8, int8 with
@@ -139,13 +136,18 @@ def profile(eng, card, out):
     from torch.profiler import profile as torch_profile
 
     from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.utils import timing
 
+    take_spans = getattr(timing, "take_spans", list)
     _stream(eng, TEXT)
     _ttfc, plain_wall, audio_s = _stream(eng, TEXT)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
         _ttfc, wall, _ = _stream(eng, TEXT)
         torch.cuda.synchronize()
+    spans = defaultdict(list)
+    for name, _ident, _detail, _thread, start, end in take_spans():
+        spans[name].append((end - start) / 1e6)
     events = prof.key_averages()
     dev = [e for e in events if _device_us(e) > 0 and e.device_type.name == "CUDA"]
     busy_ms = sum(_device_us(e) for e in dev) / 1e3
@@ -161,6 +163,9 @@ def profile(eng, card, out):
     by_kernel = sorted(dev, key=_device_us, reverse=True)[:12]
     for e in by_kernel:
         print(f"  device {_device_us(e) / 1e3:9.3f} ms  {e.count:7d} calls  {e.key[:90]}")
+    print(f"the program's spans (count, total ms, median ms) [{card}]:")
+    for name, ms in sorted(spans.items()):
+        print(f"  {name:16s} {len(ms):6d} {sum(ms):10.3f} {sorted(ms)[len(ms) // 2]:9.3f}")
     out.write("== 14-word request ==\n" + events.table(
         sort_by="self_device_time_total", row_limit=60) + "\n")
 
@@ -363,55 +368,6 @@ def forms(eng, card, out, positions=(300,)):
             for name, (us, cnt) in sorted(parts.items(), key=lambda kv: -kv[1][0]):
                 print(f"  {name[:48]:48s} {us:8.1f} us  {cnt:6.1f} launches/step")
             out.write(f"== talker step {label}, kv8={kv8}, position {pos} ==\n{table}\n")
-
-
-def phases(eng, card):
-    """Time each phase of a streaming request with device syncs around it."""
-    import torch
-
-    from qwen_tts_tpu_torch.engine import tts_engine
-    from qwen_tts_tpu_torch.runtime import frame_loop
-
-    if getattr(eng.config, "fused_chunks", False):   # a replayed graph has no phases to time
-        import dataclasses
-
-        eager = type(eng)(dataclasses.replace(eng.config, quantize=False, fused_chunks=False))
-        eager.initialize(weights=eng.weights, vocoder_weights=eng.vocoder_weights)
-        eng = eager
-    times = defaultdict(list)
-
-    def timed(mod, name, label):
-        real = getattr(mod, name)
-
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = real(*a, **k)
-            torch.cuda.synchronize()
-            times[label].append((time.perf_counter() - t0) * 1e3)
-            return r
-        setattr(mod, name, wrapper)
-        return lambda: setattr(mod, name, real)
-
-    undo = [timed(tts_engine, "embed_text_ids", "text projection"),
-            timed(tts_engine, "talker_prefill", "talker prefill (dense T=8 + first step)"),
-            timed(frame_loop, "cp_predict", "cp_predict, one frame"),
-            timed(frame_loop, "decode_step_with_embed", "talker step"),
-            timed(tts_engine, "vocoder_decode", "vocoder, one chunk")]
-    try:
-        _stream(eng, TEXT)                        # warm, with the wrappers on
-        times.clear()
-        ttfc = [_stream(eng, TEXT)[0] * 1e3 for _ in range(3)]
-    finally:
-        for u in undo:
-            u()
-    print(f"phases of three 14-word requests, synced [{card}]:")
-    for label, ts in times.items():
-        ts = sorted(ts)
-        print(f"  {label:42s} n={len(ts):4d}  min {ts[0]:8.3f}  median "
-              f"{ts[len(ts) // 2]:8.3f}  max {ts[-1]:8.3f} ms")
-    print(f"  {'synced TTFC':42s} n={len(ttfc):4d}  "
-          + "  ".join(f"{t:.3f}" for t in ttfc) + " ms")
 
 
 def positions(eng, card):
@@ -771,7 +727,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
-    which = [a for a in args if "=" not in a] or ["profile", "phases", "positions"]
+    which = [a for a in args if "=" not in a] or ["profile", "positions"]
     options = {k: {"True": True, "False": False}.get(v, v)
                for k, v in (a.split("=", 1) for a in args if "=" in a)}
     card = _card()
@@ -783,8 +739,6 @@ def main() -> int:
         for name in which:
             if name == "profile":
                 profile(eng, card, out)
-            elif name == "phases":
-                phases(eng, card)
             elif name == "positions":
                 positions(eng, card)
             elif name == "forms":
