@@ -26,8 +26,11 @@ is printed):
      `synthesize`; checks chunk lengths, finite audio, and that the
      decode-step kernel's own launch count (`TTSEngine.decode_launches`:
      the kernel counts in its workspace, so graph replays are counted)
-     equals the talker plus code-predictor decode steps run, frames
-     computed past EOS or the cap included; then a reduced model on the GPU
+     equals the talker steps plus one a frame (the code predictor's frame
+     is one launch; 14 code-predictor steps a frame are counted), and that
+     its own count of frame launches equals the frames computed and the
+     engine's `cp_kernel_frames`, frames computed past EOS or the cap
+     included; then a reduced model on the GPU
      (kernels) against the same model on the CPU (plain path), greedy: the
      first frame's codes equal and its audio within 1e-3, and over 8 frames
      either >= 95% of the codes equal or the first differing code a near
@@ -255,7 +258,25 @@ is printed):
      version as phase 5 holds it (poisoned caches, every position, run
      twice, max |diff| <= 2e-3 x max(1, max |ref|)); on mesh (2, 1) four texts dp-split, each rank's half equal bit for
      bit to a one-process batch of those two texts at the same request
-     numbers; every process group torn down at the end of its phase.
+     numbers; every process group torn down at the end of its phase;
+ 23. the code predictor's frame as one launch of the decode-step kernel
+     (`ops/cp_frame.py`: 16 steps, the 15 heads, top-k sampling inside it)
+     on phase 3's weights, against the dense plain code predictor (plain
+     PyTorch: the 2-row prefill, 14 single-row steps, f32 heads and torch's
+     top-k), from the same random talker hidden, token and Gumbel noise:
+     240 sampled frames (T and top-k of `TTSConfig`) and 60 greedy ones,
+     each equal or first parting where the plain side's margin is at most
+     `NEAR_TIE_ULPS` bf16 ulps (greedy: its top-2 gap; sampled: the two
+     tokens at the rank both picked, or the noisy scores of the two ranks
+     picked), up to there max |logit diff| <= `CP_FRAME_MAX_ABS` and cosine
+     > 0.9999, and the kernel's tokens what `sample_logits` picks from its
+     own logits; the 14-launch path the frame replaces, against the same
+     dense path, is printed beside it; the same inputs twice, the same
+     bits; each form's device time a frame as one CUDA graph (14 launches
+     and plain ops, one launch, one launch, 14 launches), its decode-step
+     launches a frame by the kernel's own count (1 against 14), its kernels
+     under the profiler, and the frame's bound (16 rows of the decoder's
+     and 15 heads' weight bytes).
 The next-to-last line is a JSON object describing the kernels, one entry
 per quantized form and one for each text-LM form of the decode step as
 well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
@@ -301,6 +322,12 @@ SERVE_SEQ, SERVE_SLOTS, SERVE_REQUESTS, SERVE_GAP_S = 1024, 4, 8, 0.15
 GEN_STEPS = 64
 GEN_TIMED_STEPS = 256
 GEN_FORMS = ("int8", "int4", "mixed")   # weight forms of the kv8 generation phases
+# phase 23: the one-launch code-predictor frame against the dense plain path.
+# max |logit diff| over groups fed the same tokens (readings 0.029 against the
+# 14-launch path and 0.024 for that path against the dense one); a frame may
+# part from the plain one only where the plain margin is a few bf16 ulps
+CP_FRAME_MAX_ABS = 0.05
+NEAR_TIE_ULPS = 3.0
 
 
 def _quant_forms():
@@ -1298,7 +1325,7 @@ def code2wav_phase(eng, card: str, c2c=None) -> dict:
         g_out, _ = serve(g, TEXTS[:2], synthesize=False, request0=310)
         launches = g.decode_launches() - d0
         m1 = g.get_metrics()
-        steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
+        steps = decode_launches_implied(m0, m1)
         e_out, _ = serve(e, TEXTS[:2], synthesize=False, request0=310)
         r = {"requests": [], "decode_step_launches": launches, "decode_steps": steps}
         for a, b in zip(g_out, e_out):
@@ -1731,10 +1758,10 @@ def serving_phase(eng3, card):
         attention.reset_device_launches(eng.device)
         spans, real_replay = [], b._g.replay
 
-        def timed_replay(key, body):      # events around each replay, on its stream
+        def timed_replay(key, body, *ident):   # events around each replay, on its stream
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record(b._g.stream)
-            real_replay(key, body)
+            real_replay(key, body, *ident)
             ev[1].record(b._g.stream)
             spans.append(ev)
 
@@ -2196,10 +2223,10 @@ def text_lm_phase(card):
     # not overlap)
     g, replays, real_replay = lm._graphs, [], lm._graphs.replay
 
-    def timed_replay(key, body):
+    def timed_replay(key, body, *ident):   # ChunkGraphs.replay's request number, if given
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record(g.stream)
-        real_replay(key, body)
+        real_replay(key, body, *ident)
         ev[1].record(g.stream)
         replays.append(ev)
 
@@ -2339,7 +2366,9 @@ def agent_phase(w, eng, card) -> dict:
         torch.cuda.synchronize()
         m1 = eng.get_metrics()
         steps = {"lm": lm.steps - s0, "talker": m1["talker_steps"] - m0["talker_steps"],
-                 "code_predictor": m1["cp_steps"] - m0["cp_steps"]}
+                 "code_predictor": m1["cp_steps"] - m0["cp_steps"],
+                 "code_predictor_frames_one_launch":
+                     m1["cp_kernel_frames"] - m0["cp_kernel_frames"]}
         res = {"decode_step_launches": {"lm": lm_b1() - l0, "engine": eng.decode_launches() - e0},
                "decode_steps": steps, "lm_warm_s": warm_s,
                "lm_graph_replays": lm._graphs.replays - r0, "lm_graphs": len(lm._graphs.graphs),
@@ -2354,7 +2383,7 @@ def agent_phase(w, eng, card) -> dict:
         b1 = res["decode_step_launches"]
         assert b1["lm"] == steps["lm"] > 0, res
         assert res["lm_graphs"] == 1 + len(chunk_lengths(n_tok, AGENT_CHUNK)), res
-        assert b1["engine"] == steps["talker"] + steps["code_predictor"] > 0, res
+        assert b1["engine"] == decode_launches_implied(m0, m1) > 0, res
         assert all(t.spoken == AGENT_SENTENCES and t.first_audio_s for t in turns), res
 
         # each sentence alone, at its request number: the same codes
@@ -2571,7 +2600,8 @@ def generator_and_demos_phase(eng, batcher, card) -> dict:
     launches = decode_step.device_launches(mc.talker, geng.device) - d0
     graph_frames = _speak(eng, TEXTS[1], 300)
     steps = {"talker": m1["talker_steps"] - m0["talker_steps"],
-             "code_predictor": m1["cp_steps"] - m0["cp_steps"]}
+             "code_predictor": m1["cp_steps"] - m0["cp_steps"],
+             "code_predictor_frames_one_launch": m1["cp_kernel_frames"] - m0["cp_kernel_frames"]}
     n = len(gen_frames)
     res["generator"] = {"frames": n, "frames_past_eos": steps["talker"] - 1 - n,
                         "steps": steps, "decode_step_launches": launches, "wall_s": wall,
@@ -2581,7 +2611,8 @@ def generator_and_demos_phase(eng, batcher, card) -> dict:
           f"{json.dumps(res['generator'])} {card}")
     g = res["generator"]
     assert g["frames_past_eos"] == 0 and steps["code_predictor"] == 14 * n, g
-    assert launches == steps["talker"] + steps["code_predictor"] and g["codes_equal_graph_path"], g
+    assert steps["code_predictor_frames_one_launch"] == n, g
+    assert launches == decode_launches_implied(m0, m1) and g["codes_equal_graph_path"], g
     del geng
 
     with tempfile.TemporaryDirectory() as d:
@@ -2846,6 +2877,217 @@ def mesh_phase(eng, card) -> dict:
     return res
 
 
+class _PlainCodePredictor:
+    """Inside, `cp_predict` takes its plain path on the card too (the dense
+    2-row prefill, 14 decode-step launches, the f32 heads and torch's top-k
+    between them): what the frame loop ran before the one-launch frame."""
+
+    def __enter__(self):
+        from qwen_tts_tpu_torch.models import code_predictor
+
+        self.module, self.real = code_predictor, code_predictor.frame_kernel
+        code_predictor.frame_kernel = lambda *a, **k: False
+        return self
+
+    def __exit__(self, *exc):
+        self.module.frame_kernel = self.real
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _frame_parting(codes, ref_codes, logits, ref_logits, noise, temperature: float,
+                   top_k: int, sample: bool) -> dict | None:
+    """Where a frame (`codes`, `logits`) first parts from a reference frame
+    (`ref_*`) of the same inputs: the group, the kind, the reference side's
+    margin there in bf16 ulps of the two values and the two sides' largest
+    logit difference in that group (`delta`). Greedy: the reference's gap
+    between the two tokens. Sampled, the same rank picked: the two tokens'
+    reference logits (a rank swap, which hands each the other's noise);
+    another rank picked: the reference's noisy scores of the two ranks. A
+    parting is a near tie when its margin is at most `NEAR_TIE_ULPS`. None
+    when the frames are equal."""
+    import torch
+
+    parted = (codes != ref_codes).nonzero()
+    if not len(parted):
+        return None
+    g = int(parted[0, 0]) - 1
+    rl, kl = ref_logits[g], logits[g]
+    tr, tk = int(ref_codes[g + 1]), int(codes[g + 1])
+    if not sample:
+        a, b, kind = float(rl[tr]), float(rl[tk]), "argmax"
+    else:
+        rv, ri = torch.topk(rl / temperature, top_k)
+        _, ki = torch.topk(kl / temperature, top_k)
+        r_ref = int((ri == tr).nonzero()[0, 0])
+        r_k = int((ki == tk).nonzero()[0, 0])
+        if r_ref == r_k:
+            a, b, kind = float(rl[tr]), float(rl[tk]), "rank swap"
+        else:
+            scores = rv + noise[g]
+            a, b, kind = float(scores[r_ref]), float(scores[r_k]), "pick"
+    margin = abs(a - b)
+    ulps = margin / max(_bf16_ulp(a), _bf16_ulp(b))
+    return {"group": g + 1, "kind": kind, "margin": margin,
+            "delta": float((kl - rl).abs().max()), "ulps": ulps,
+            "near_tie": ulps <= NEAR_TIE_ULPS, "logits_cos": _cos(kl, rl)}
+
+
+def cp_frame_phase(eng, card, frames: int = 240) -> dict:
+    """Phase 23 (module docstring)."""
+    import torch
+    from qwen_tts_tpu_torch.models.code_predictor import cp_predict
+    from qwen_tts_tpu_torch.models.decoder import init_state
+    from qwen_tts_tpu_torch.ops import cp_frame as cpf
+    from qwen_tts_tpu_torch.ops import decode_step
+    from qwen_tts_tpu_torch.ops.sampling import gumbel_noise, sample_logits
+
+    mc, w, cfg_e = eng.model_config, eng.weights, eng.config
+    cfg, cp, embed = mc.code_predictor, w.code_predictor, w.talker.embed
+    T, K = cfg_e.subtalker_temperature, cfg_e.subtalker_top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 23)
+    st_k, st_p = init_state(cfg, "cuda"), init_state(cfg, "cuda")
+
+    def inputs():
+        return (torch.randn(cfg.hidden_size, generator=gen, device="cuda"),
+                torch.randint(0, mc.talker.vocab_size, (), generator=gen, device="cuda"),
+                gumbel_noise((15, K), gen, "cuda"))
+
+    def frame(hidden, first, noise, sample, impl, plain=False):
+        kw = dict(do_sample=sample, temperature=T, top_k=K, noise=noise if sample else None,
+                  attn_impl=impl, return_logits=True)
+        if not plain:
+            return cp_predict(cfg, cp, hidden, first, embed, state=st_k, **kw)
+        with _PlainCodePredictor():
+            return cp_predict(cfg, cp, hidden, first, embed, state=st_p, **kw)
+
+    res = {}
+    frames0 = cpf.cp_frame.frames
+    for sample, n in ((True, frames), (False, frames // 4)):
+        key = "sampled" if sample else "greedy"
+        r = res[key] = {"frames": n, "equal": 0, "sampler_mismatches": 0, "logits_cos_min": 1.0,
+                        "max_abs_vs_dense": 0.0, "parent_equal_dense": 0,
+                        "parent_max_abs_vs_dense": 0.0, "partings": [], "ulps": []}
+        for _ in range(n):
+            hidden, first, noise = inputs()
+            codes, logits = frame(hidden, first, noise, sample, "mega")
+            dc, dl = frame(hidden, first, noise, sample, "dense", plain=True)
+            pc, pl = frame(hidden, first, noise, sample, "mega", plain=True)
+            # the epilogue's sample of the kernel's own logits, as sample_logits
+            # takes it on the CPU (IEEE division by T, as the kernel divides)
+            lc, nc = logits.cpu(), noise.cpu()
+            r["sampler_mismatches"] += sum(
+                int(sample_logits(lc[g], sample, T, K, nc[g] if sample else None))
+                != int(codes[g + 1]) for g in range(15))
+            part = _frame_parting(codes, dc, logits, dl, noise, T, K, sample)
+            upto = 15 if part is None else part["group"]
+            r["logits_cos_min"] = min(r["logits_cos_min"],
+                                      min(_cos(logits[g], dl[g]) for g in range(upto)))
+            r["max_abs_vs_dense"] = max(r["max_abs_vs_dense"],
+                                        float((logits[:upto] - dl[:upto]).abs().max()))
+            ppart = _frame_parting(pc, dc, pl, dl, noise, T, K, sample)
+            pupto = 15 if ppart is None else ppart["group"]
+            r["parent_max_abs_vs_dense"] = max(r["parent_max_abs_vs_dense"],
+                                               float((pl[:pupto] - dl[:pupto]).abs().max()))
+            r["parent_equal_dense"] += ppart is None
+            if part is None:
+                r["equal"] += 1
+            else:
+                r["partings"].append(part)
+                r["ulps"].append(part["ulps"])
+        ulps = sorted(r.pop("ulps"))
+        r["parting_margin_ulps"] = {"under_1": sum(u < 1 for u in ulps),
+                                    "median": ulps[len(ulps) // 2] if ulps else None,
+                                    "max": ulps[-1] if ulps else None}
+        r["near_ties"] = sum(p["near_tie"] for p in r["partings"])
+        r["partings"] = r["partings"][:6]
+        print(f"code-predictor frame, one launch against the dense plain code predictor "
+              f"({key}, T {T}, top-k {K}; the 14-launch path against the dense one beside it): "
+              f"{json.dumps(r)} {card}")
+        assert r["sampler_mismatches"] == 0, r
+        assert r["logits_cos_min"] > 0.9999, r
+        assert r["max_abs_vs_dense"] <= CP_FRAME_MAX_ABS, r
+        assert r["near_ties"] == n - r["equal"], r
+    assert cpf.cp_frame.frames - frames0 == frames + frames // 4
+    # the same inputs twice: the same bits
+    hidden, first, noise = inputs()
+    a = cp_predict(cfg, cp, hidden, first, embed, True, T, K, noise, attn_impl="mega",
+                   return_logits=True, state=st_k)
+    b = cp_predict(cfg, cp, hidden, first, embed, True, T, K, noise, attn_impl="mega",
+                   return_logits=True, state=st_k)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    # device time of a frame: one launch against the plain code predictor,
+    # each captured as one CUDA graph (the engine's form) on an owned
+    # workspace; launches of the decode-step kernel a frame, by its own count
+    own = decode_step.Owned()
+    times = {}
+    with own.active():
+        def one():
+            return cp_predict(cfg, cp, hidden, first, embed, True, T, K, noise,
+                              attn_impl="mega", state=st_k)
+
+        def plain():
+            with _PlainCodePredictor():
+                return cp_predict(cfg, cp, hidden, first, embed, True, T, K, noise,
+                                  attn_impl="mega", state=st_p)
+
+        for label, fn in (("plain", plain), ("one_launch", one), ("one_launch_2", one),
+                          ("plain_2", plain)):
+            n0 = own.launches()
+            times[label] = _graph_ms(fn, 200)
+            # two eager runs, two warm replays, 200 timed ones
+            times[f"{label}_launches_a_frame"] = (own.launches() - n0) / 204
+        parts = {"one_launch": _device_by_kernel(one, 20), "plain": _device_by_kernel(plain, 20)}
+    res["graph_ms"] = {"one_launch": min(times["one_launch"], times["one_launch_2"]),
+                       "plain": min(times["plain"], times["plain_2"])}
+    res["launches_a_frame"] = {k.replace("_launches_a_frame", ""): v
+                               for k, v in times.items() if k.endswith("_launches_a_frame")}
+    res["kernels"] = {k: {n: [round(ms, 5), round(c, 2)] for n, (ms, c) in v.items()}
+                      for k, v in parts.items()}
+    res["profiled_device_ms"] = {k: sum(ms for ms, _ in v.values()) for k, v in parts.items()}
+    res["bound_ms"] = _bound_ms(*cp_frame_cost(mc))[0]
+    print(f"code-predictor frame, device ms a frame as one CUDA graph: "
+          f"{json.dumps(res['graph_ms'])}, decode-step launches a frame "
+          f"{json.dumps(res['launches_a_frame'])}, bound {res['bound_ms']:.4f} ms; by kernel "
+          f"(ms, launches a frame) {json.dumps(res['kernels'])} {card}")
+    assert all(abs(v - 1) < 1e-9 for k, v in res["launches_a_frame"].items()
+               if k.startswith("one_launch")), res
+    assert all(abs(v - 14) < 1e-9 for k, v in res["launches_a_frame"].items()
+               if k.startswith("plain")), res
+    res["max_abs_err"] = max(res[k]["max_abs_vs_dense"] for k in ("sampled", "greedy"))
+    return res
+
+
+def cp_frame_cost(mc):
+    """(bytes, FLOPs) of a code-predictor frame's least work: the decoder's
+    layer weights, norms and cache rows for 16 rows (every step streams the
+    weights again: step n + 1 needs step n's token) and the 15 heads'
+    weights, bf16; the products 2 FLOPs a weight a row."""
+    c = mc.code_predictor
+    H, I, Q, KV = c.hidden_size, c.intermediate_size, c.q_size, c.kv_size
+    layer = H * (Q + 2 * KV) + Q * H + H * 2 * I + I * H
+    per_step = c.num_layers * (2 * layer + 2 * 2 * H + 2 * 2 * c.head_dim)
+    heads = 15 * 2 * H * c.vocab_size
+    nbytes = 16 * per_step + heads + 16 * c.num_layers * 2 * 2 * KV
+    flops = 16 * 2 * c.num_layers * layer + 15 * 2 * H * c.vocab_size
+    return nbytes, flops
+
+
+def decode_launches_implied(m0: dict, m1: dict) -> int:
+    """The decode-step kernel's launches the engine's counters imply between
+    two `get_metrics()`: one a talker step, one a frame whose code predictor
+    ran as one launch (`cp_kernel_frames`), one a code-predictor step of
+    any other frame."""
+    kf = m1.get("cp_kernel_frames", 0) - m0.get("cp_kernel_frames", 0)
+    return (m1["talker_steps"] - m0["talker_steps"]) + kf + (
+        m1["cp_steps"] - m0["cp_steps"] - 14 * kf)
+
+
 def _phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - _T0:.1f} s")
 
@@ -2920,17 +3162,22 @@ def main() -> int:
     # ── phase 3: the main path through the engine ──
     stream(eng, TEXTS[0])                          # warm: the host-side set-up
     _reset_launches()
-    m0, d0 = eng.get_metrics(), eng.decode_launches()
+    m0, d0, f0 = eng.get_metrics(), eng.decode_launches(), eng.decode_launches(frames=True)
     stats = run_requests(eng)
-    launches = {"decode_step": eng.decode_launches() - d0}
+    launches = {"decode_step": eng.decode_launches() - d0,
+                "cp_frame": eng.decode_launches(frames=True) - f0}
     m1 = eng.get_metrics()
-    steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
-    print(f"main path (CUDA graphs): {launches['decode_step']} decode-step launches (the "
-          f"kernel's own count; the wrapper's {decode_step.megakernel_forward.launches}), "
-          f"{steps} decode steps "
-          f"(talker {m1['talker_steps'] - m0['talker_steps']}, "
-          f"code predictor {m1['cp_steps'] - m0['cp_steps']})")
+    steps = decode_launches_implied(m0, m1)
+    frames = (m1["cp_steps"] - m0["cp_steps"]) // 14
+    print(f"main path (CUDA graphs): {launches['decode_step']} decode-step launches, "
+          f"{launches['cp_frame']} of them code-predictor frames (the kernel's own counts; "
+          f"the wrapper's {decode_step.megakernel_forward.launches}), {steps} implied by the "
+          f"decode steps (talker {m1['talker_steps'] - m0['talker_steps']}, code predictor "
+          f"{m1['cp_steps'] - m0['cp_steps']} in {frames} frames, "
+          f"{m1['cp_kernel_frames'] - m0['cp_kernel_frames']} counted in cp_kernel_frames)")
     assert launches["decode_step"] == steps > 0, (launches, steps)
+    assert launches["cp_frame"] == frames == m1["cp_kernel_frames"] - m0["cp_kernel_frames"] > 0, \
+        (launches, m0, m1)
     parity = reduced_engine_parity()
     print("reduced model, GPU kernel vs CPU plain engine:", json.dumps(parity))
 
@@ -3059,8 +3306,9 @@ def main() -> int:
     qstats = run_requests(qeng)
     qlaunch = {"int8": qeng.decode_launches() - d0}
     m1 = qeng.get_metrics()
-    steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
-    print(f"int8+kv8 path: {qlaunch['int8']} decode-step launches, {steps} decode steps")
+    steps = decode_launches_implied(m0, m1)
+    print(f"int8+kv8 path: {qlaunch['int8']} decode-step launches, {steps} implied by the "
+          f"decode steps")
     assert qlaunch["int8"] == steps > 0, (qlaunch, steps)
     assert qeng._talker_state.k_cache.dtype == torch.int8
     parity_q = reduced_engine_parity("mega", quantize="int8", kv_cache="int8")
@@ -3073,8 +3321,9 @@ def main() -> int:
         qlaunch[q] = e.decode_launches() - d0
         m1 = e.get_metrics()
         audio = check_stream(e, chunks)
-        steps = (m1["talker_steps"] - m0["talker_steps"]) + (m1["cp_steps"] - m0["cp_steps"])
-        print(f"{q}+kv8 path: {qlaunch[q]} decode-step launches, {steps} decode steps; "
+        steps = decode_launches_implied(m0, m1)
+        print(f"{q}+kv8 path: {qlaunch[q]} decode-step launches, {steps} implied by the "
+              f"decode steps; "
               f"{len(chunks)} chunks, {len(audio) / e.sample_rate:.2f} s audio, TTFC "
               f"{ttfc * 1e3:.2f} ms, RTF {wall / (len(audio) / e.sample_rate):.4f} {card}")
         assert qlaunch[q] == steps > 0, (q, qlaunch, steps)
@@ -3198,6 +3447,11 @@ def main() -> int:
     mesh = mesh_phase(eng, card)
 
     _phase_done(22)
+
+    # ── phase 23: the code predictor's frame as one launch of the decode kernel ──
+    cp_res = cp_frame_phase(eng, card)
+
+    _phase_done(23)
     assert all(math.isfinite(e) for e in errs + [attn_err, mesh["max_abs_err"], gen_err,
                                                  *qerr.values(),
                                                  *gerr.values(), slot_attn["max_abs_err"],
@@ -3216,6 +3470,14 @@ def main() -> int:
          "code2wav_graph_launches": {dt: r["decode_step_launches"]
                                      for dt, r in c2w_res["dtypes"].items()},
          "incoherence": fold},
+        {"name": "decode_step[code-predictor frame: 16 steps, 15 heads, top-k sampling]",
+         "route": "cuda", "source": "qwen_tts_tpu_torch/csrc/generate.cu",
+         "replaces": "none (qwen_tts_tpu/models/code_predictor.py:cp_predict is one jit)",
+         "launches": launches["cp_frame"], "max_abs_err": cp_res["max_abs_err"],
+         "ms": cp_res["graph_ms"]["one_launch"], "plain_ms": cp_res["graph_ms"]["plain"],
+         "bound_ms": cp_res["bound_ms"], "bound_by": "bytes", "library_ms": None,
+         **{k: cp_res[k] for k in ("sampled", "greedy", "launches_a_frame",
+                                   "profiled_device_ms")}},
         {"name": "decode_step[text LM: V=151936, tied head]", "route": "cuda",
          "source": "qwen_tts_tpu_torch/csrc/decode_step.cu",
          "replaces": "qwen_tts_tpu/ops/decode_step.py:98",

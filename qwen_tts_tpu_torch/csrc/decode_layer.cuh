@@ -76,6 +76,29 @@
 // splits; for generation, each block's argmax candidate, a barrier, and
 // every block reduces the candidates to the same token (lowest index on a
 // tie) and reads its embedding row as the next step's input.
+//
+// A code-predictor frame (qtts_cp_frame) is one launch of 16 steps: step 0
+// from the talker's f32 hidden (x_in) with no head, step 1 from row
+// first_token of the talker's embedding table, and after step n >= 1 head
+// g = n - 1 of the layer-stacked heads [15, H, V] (the head's tensor map
+// indexed by g, as the layers' are by layer), then the sampling epilogue
+// in place of the argmax reduce: the logits summed over the head's splits,
+// a barrier, and every block takes the same top_k of logits / temperature
+// (radix passes over the f32 bits narrow them to a few candidates, ranked
+// against each other; ties to the lower index), sorted descending, adds
+// Gumbel noise row g in rank order, and takes the first
+// rank of the largest sum (ops/sampling.py::sample_logits); step n + 1 reads
+// the token's row of codec table g [15, V, H]. It replaces the plain code
+// predictor of the frame loop (a dense 2-row prefill, 14 launches of this
+// kernel, 15 f32 heads and torch's top-k between them), whose weight casts,
+// f32 products and ~250 small kernels a frame cost more than its launches.
+// One rounding differs from the dense prefill: row 1 attends to row 0's K/V
+// from the bf16 cache (the configured KV rounding every later row sees),
+// where the dense prefill kept them in f32 inside its chunk. The frame is
+// an instantiation of its own (kFrame; a bf16 cache, at most 2 q heads a kv
+// head), so that the talker's, the text LM's and generation's launches
+// compile without its code: as runtime branches of their kernel it slowed
+// their steps by ~4% on an H100 (PERF.md).
 // GEMV work items are 64-column tiles x split-K row ranges, the split
 // chosen so that the items spread evenly over the grid; the grouped forms
 // keep their splits on 128-row groups, one scale load a pass. Weights
@@ -159,9 +182,17 @@ constexpr int kQttsMaxSections = 8;
 // x_in is the f32 input row [H]; normed [H] and, with a head, logits [V]
 // are written. N steps (qtts_generate): embed [*, H] bf16 and first_token
 // (device int32 [1]) give step 0's input, tokens [N] int32 receive the
-// argmaxes. positions (device int32 [1 + n_sec]): the cache row of the
+// argmaxes. A code-predictor frame (qtts_cp_frame) sets x_in beside tokens:
+// step 0 runs from x_in without a head, step 1 from embed[first_token],
+// step n >= 2 from the token's row of table n - 2 of step_embed [heads, V,
+// H] bf16; after step n >= 1 head n - 1 of the stack [heads, H, V] (the
+// decoder's lm_head), and its token into tokens[n - 1]: the argmax, or with
+// noise [heads, top_k] f32 the top_k sample at temperature; logits (if set)
+// receives each head's row [heads, V].
+// positions (device int32 [1 + n_sec]): the cache row of the
 // first step, then the first step's M-RoPE section positions (n_sec == 0:
-// standard RoPE at the cache row); the launch adds num_steps to each.
+// standard RoPE at the cache row); the launch adds num_steps to each (a
+// frame's leaves them as it found them).
 // Section s of the rotary frequencies reads row positions[1 + s] + n of
 // the f32 tables cos_tab / sin_tab [rope_rows, D/2] at step n: index j is
 // in section s >= 1 iff (interleaved) j % n_sec == s and j < n_sec *
@@ -182,6 +213,11 @@ struct QttsStepIO {
   float* normed;
   float* logits;
   void* workspace;
+  int heads;
+  const void* step_embed;
+  const float* noise;
+  int top_k;
+  float temperature;
 };
 
 // Launches the persistent decode kernel (defined in decode_step.cu).
@@ -201,6 +237,8 @@ constexpr int kMaxSplit = 32;           // split-K factor bound (sizes the works
 constexpr int kMaxK = 4096;             // longest GEMV input (H, Q, I)
 constexpr int kMaxGrid = 1024;          // most blocks a launch (sizes the candidates)
 constexpr int kMaxKvHeads = 32;
+constexpr int kMaxTopK = 64;            // the sampling epilogue's largest top_k
+constexpr int kSamplePer = 16;          // its logits a thread: V <= 4096
 static_assert(kThreads == 8 * kGemvRows, "8 threads a 64-column tile x 32 row lanes");
 
 // Stages, for the stage timers (-DQTTS_STAGE_TIMERS).
@@ -245,7 +283,8 @@ struct Workspace {
   float* amerge_acc;  // acc [KVH][16][G][D], and the in-flight column:
   float* amerge_col;  // [KVH][kColFloats], its scores (8) then its values (D)
   unsigned* head_done;  // [KVH] block partials written, ever (never reset)
-  unsigned long long* launches;  // launches of the kernel, ever (block 0 counts)
+  unsigned long long* launches;  // [2]: launches of the kernel, and of its frame
+                                 // form, ever (block 0 counts)
   unsigned long long* timers;  // [kTimerWords]
 };
 
@@ -279,6 +318,10 @@ struct StepParams {
   int sec[kQttsMaxSections];
   float* normed;
   float* logits;
+  const bf16* step_embed;
+  const float* noise;
+  int top_k;
+  float temperature;
   Workspace ws;
 };
 
@@ -304,7 +347,7 @@ size_t workspace_bytes(int H, int I, int HQ, int KVH, int D, int V, Workspace* w
   size_t off = 0;
   const size_t bar_off = off;  off += align_up(2 * sizeof(unsigned));
   const size_t hd_off = off;   off += align_up(kMaxKvHeads * sizeof(unsigned));
-  const size_t ln_off = off;   off += align_up(sizeof(unsigned long long));
+  const size_t ln_off = off;   off += align_up(2 * sizeof(unsigned long long));
   const size_t tm_off = off;   off += align_up(kTimerWords * sizeof(unsigned long long));
   const size_t x_off = off;    off += 2 * align_up((size_t)H * sizeof(float));
   const size_t p_off = off;    off += 2 * align_up((size_t)kMaxSplit * max_n * sizeof(float));
@@ -992,6 +1035,143 @@ __device__ __forceinline__ void block_argmax(float& v, int& idx, BlockShared& sm
   __syncthreads();
 }
 
+// The order of f32 values as unsigned integers (larger float, larger key).
+__device__ __forceinline__ unsigned order_key(float f) {
+  const unsigned b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+// Exclusive sum of x over the block's threads in thread order. tot:
+// kAttnWarps ints of shared memory.
+__device__ __forceinline__ int block_exclusive_sum(int x, int* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  int base = 0;
+#pragma unroll
+  for (int w = 0; w < kAttnWarps; ++w) base += w < warp ? tot[w] : 0;
+  __syncthreads();  // tot is free again
+  return base + incl - x;
+}
+
+// The f32 value of an order_key.
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+// The sampling epilogue's candidates are ranked against each other once the
+// radix passes have narrowed them to this many (or resolved every bit).
+constexpr int kSampleCand = 256;
+// Shared memory the sampling epilogue takes (ints): the radix histogram,
+// candidates (keys and indices, as many as the logits at most), the top_k
+// sorted, and a few words.
+constexpr int kSampleScratch = 256 + 2 * kThreads * kSamplePer + 2 * kMaxTopK + 4 + kAttnWarps;
+static_assert(kThreads == 256, "one radix bin a thread");
+static_assert(kSampleScratch <= kStageFloats, "the sampling scratch fits the staging area");
+
+// The sampling epilogue, in every block alike (ops/sampling.py::
+// sample_logits): of logits [V] (written by other blocks before the last
+// barrier), the top_k of logits / temperature (IEEE f32 division), sorted
+// descending with ties to the lower index; noise[r] (f32 Gumbel noise) added
+// to rank r; the token of the first rank of the largest sum, returned in
+// thread 0. Each thread holds V / 256 consecutive logits as order keys. Radix
+// passes over 8 bits of the keys (a shared histogram, a warp's lanes with
+// the same digit merged into one atomic) find the bin that holds the top_k-th
+// largest, until the keys above it and in it number at most kSampleCand
+// (typically after one pass: the top byte holds the sign and most of the
+// exponent); those are gathered and each ranked against the others.
+// scratch: kSampleScratch ints.
+__device__ __forceinline__ int sample_top_k(const float* logits, int V, float temperature,
+                                            const float* __restrict__ noise, int top_k,
+                                            int* scratch, BlockShared& sm) {
+  int* hist = scratch;  // [256]
+  unsigned* cand_key = reinterpret_cast<unsigned*>(hist + 256);
+  int* cand_idx = reinterpret_cast<int*>(cand_key + kThreads * kSamplePer);
+  unsigned* top_key = reinterpret_cast<unsigned*>(cand_idx + kThreads * kSamplePer);
+  int* top_idx = reinterpret_cast<int*>(top_key + kMaxTopK);
+  int* misc = top_idx + kMaxTopK;  // keys still wanted in the bin, its digit, its count, gathered
+  int* tot = misc + 4;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int per = (V + kThreads - 1) / kThreads, v0 = tid * per;
+  const int n_in = max(0, min(per, V - v0));
+  unsigned key[kSamplePer];
+#pragma unroll
+  for (int j = 0; j < kSamplePer; ++j)
+    key[j] = j < n_in ? order_key(__fdiv_rn(__ldcg(logits + v0 + j), temperature)) : 0u;
+  if (tid == 0) misc[3] = 0;
+  unsigned prefix = 0u, mask = 0u;  // the bits of the bin found so far
+  int want = top_k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    hist[tid] = 0;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSamplePer; ++j) {
+      if (j >= per) break;  // uniform over the block
+      const bool part = j < n_in && (key[j] & mask) == prefix;
+      const unsigned lanes = __ballot_sync(0xffffffffu, part);
+      if (part) {
+        const unsigned d = (key[j] >> shift) & 255u;
+        const unsigned same = __match_any_sync(lanes, d);
+        if (lane == __ffs(same) - 1) atomicAdd(&hist[d], __popc(same));
+      }
+    }
+    __syncthreads();
+    // thread t takes digit 255 - t: the keys above it, then those at it
+    const int d = 255 - tid, c = hist[d];
+    const int above = block_exclusive_sum(c, tot);
+    if (c > 0 && above < want && want <= above + c) {
+      misc[0] = want - above;
+      misc[1] = d;
+      misc[2] = c;
+    }
+    __syncthreads();
+    want = misc[0];
+    prefix |= (unsigned)misc[1] << shift;
+    mask |= 255u << shift;
+    if (top_k - want + misc[2] <= kSampleCand) break;  // the same in every thread
+  }
+  // gather every key above the bin and in it, then rank each against the
+  // others: a larger key, or an equal one at a lower index, comes first
+#pragma unroll
+  for (int j = 0; j < kSamplePer; ++j) {
+    if (j < n_in && (key[j] & mask) >= prefix) {
+      const int slot = atomicAdd(&misc[3], 1);
+      cand_key[slot] = key[j];
+      cand_idx[slot] = v0 + j;
+    }
+  }
+  __syncthreads();
+  const int n_cand = misc[3];
+  for (int c = tid; c < n_cand; c += kThreads) {
+    const unsigned k = cand_key[c];
+    const int i = cand_idx[c];
+    int rk = 0;
+    for (int s = 0; s < n_cand; ++s) {
+      const unsigned ks = cand_key[s];
+      rk += ks > k || (ks == k && cand_idx[s] < i);
+    }
+    if (rk < top_k) {
+      top_key[rk] = k;
+      top_idx[rk] = i;
+    }
+  }
+  __syncthreads();
+  float score = -INFINITY;
+  int rank = INT_MAX;
+  if (tid < top_k) {
+    score = key_value(top_key[tid]) + __ldg(noise + tid);
+    rank = tid;
+  }
+  block_argmax(score, rank, sm);  // the first rank of the largest sum, in thread 0
+  return top_idx[rank < top_k ? rank : 0];
+}
+
 #ifdef QTTS_STAGE_TIMERS
 #define QTTS_TIMER_DECL                                                                \
   unsigned long long t_acc[kNumStages] = {}, t_work[kNumStages] = {},                  \
@@ -1032,8 +1212,13 @@ __device__ __forceinline__ void block_argmax(float& v, int& idx, BlockShared& sm
 
 // The persistent decode kernel: p.num_steps steps (see the file comment).
 // Generation (p.tokens set) feeds each step's argmax back as the next
-// step's input; otherwise the one step starts from p.x_in.
-template <typename CacheT, int KG>
+// step's input; otherwise the one step starts from p.x_in. kFrame: a
+// code-predictor frame (p.x_in and p.tokens set): step 0 from p.x_in with
+// no head, step 1 from p.embed[first_token], step n >= 2 from the token's
+// row of p.step_embed table n - 2; head n - 1 of the stack after step
+// n >= 1, and its token by the sampling epilogue when p.noise is set; the
+// positions left as found. The other launches compile without any of it.
+template <typename CacheT, int KG, bool kFrame>
 __global__ void __launch_bounds__(kThreads, 1) decode_persistent(const __grid_constant__ StepParams p) {
   __shared__ BlockShared sm;
   extern __shared__ __align__(128) char dsmem[];  // weight regions 0, 1; staging
@@ -1073,10 +1258,22 @@ __global__ void __launch_bounds__(kThreads, 1) decode_persistent(const __grid_co
     int tpb;
     const int nb = attn_split(pos, C, &tpb);
     const bool attends = rank < nb;  // the head's other blocks skip the attention
+    const bool lead = kFrame && n == 0;  // a frame's step 0: no head
+    const int hi = kFrame ? n - 1 : 0;   // the step's head in the stack
     for (int li = 0; li < p.L; ++li) {
       // 1. residual + input norm + QKV (region 0; O-proj waits in region 1)
       const bf16* emb = gen && li == 0 ? p.embed + (size_t)sm.token * H : nullptr;
-      residual_norm(li == 0 ? p.x_in : p.ws.x[0], emb, li == 0 ? nullptr : p.ws.part[1],
+      const float* base = li == 0 ? p.x_in : p.ws.x[0];
+      if constexpr (kFrame) {
+        if (li == 0 && !lead) {  // the token's row of the step's table
+          emb = (n == 1 ? p.embed : p.step_embed + (size_t)(n - 2) * p.V * H) +
+                (size_t)sm.token * H;
+          base = nullptr;
+        } else {
+          emb = nullptr;
+        }
+      }
+      residual_norm(base, emb, li == 0 ? nullptr : p.ws.part[1],
                     li == 0 ? 0 : p.down.ns, H, p.input_norm + (size_t)li * H, p.eps,
                     p.ws.x[1], nullptr, xs, stage, sm.warp_ss);
       QTTS_TIMER_PRO(kStageQkv)
@@ -1136,8 +1333,10 @@ __global__ void __launch_bounds__(kThreads, 1) decode_persistent(const __grid_co
       grid_sync_issuing(bar, bar_target, [&] {
         if (li + 1 < p.L)
           stream_prime(p.qkv, p.tmap, li + 1, r0);
+        else if (lead)  // the next step's QKV
+          stream_prime(p.qkv, p.tmap, 0, r0);
         else
-          stream_prime(p.head, p.tmap, 0, r0);
+          stream_prime(p.head, p.tmap, hi, r0);
       });
       QTTS_TIMER_MARK(kStageGateUp)
 
@@ -1176,16 +1375,19 @@ __global__ void __launch_bounds__(kThreads, 1) decode_persistent(const __grid_co
       QTTS_TIMER_WORK(kStageDown)
       grid_sync_issuing(bar, bar_target, [&] {
         if (li + 1 < p.L) stream_prime(p.o, p.tmap, li + 1, r1);
+        else if (lead) stream_prime(p.o, p.tmap, 0, r1);
       });
       QTTS_TIMER_MARK(kStageDown)
     }
+
+    if (lead) continue;  // its cache rows are all it leaves
 
     // the final norm and the head (region 0)
     float* normed = gen ? p.ws.normed : p.normed;
     residual_norm(p.ws.x[0], nullptr, p.ws.part[1], p.down.ns, H, p.final_norm, p.eps,
                   nullptr, normed, xs, stage, sm.warp_ss);
     if (p.head.w == nullptr) break;  // no head: one step, done
-    gemv_stage(p.head, p.tmap, 0, p.ws.part[0], xs, r0, sm.red, [](int, int) {});
+    gemv_stage(p.head, p.tmap, hi, p.ws.part[0], xs, r0, sm.red, [](int, int) {});
     QTTS_TIMER_WORK(kStageHead)
     grid_sync_issuing(bar, bar_target, [&] {
       if (gen && n + 1 < p.num_steps) {  // the next step's QKV and O-proj stream in
@@ -1202,35 +1404,45 @@ __global__ void __launch_bounds__(kThreads, 1) decode_persistent(const __grid_co
     for (int v = blockIdx.x * kThreads + tid; v < p.V; v += gridDim.x * kThreads) {
       const float s = sum_splits(p.ws.part[0], p.head.ns, p.V, v);
       logits[v] = s;
+      if (kFrame && p.logits != nullptr) p.logits[(size_t)hi * p.V + v] = s;
       better(bv, bi, s, v);
     }
     if (!gen) break;
-    block_argmax(bv, bi, sm);
-    if (tid == 0) {
-      p.ws.cand_v[blockIdx.x] = bv;
-      p.ws.cand_i[blockIdx.x] = bi;
+    const bool sampled = kFrame && p.noise != nullptr;
+    if (!sampled) {
+      block_argmax(bv, bi, sm);
+      if (tid == 0) {
+        p.ws.cand_v[blockIdx.x] = bv;
+        p.ws.cand_i[blockIdx.x] = bi;
+      }
     }
     QTTS_TIMER_WORK(kStageLogits)
     grid_sync(bar, bar_target);
     QTTS_TIMER_MARK(kStageLogits)
 
-    // every block reduces the candidates to the same token
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int b = tid; b < (int)gridDim.x; b += kThreads)
-      better(bv, bi, __ldcg(p.ws.cand_v + b), __ldcg(p.ws.cand_i + b));
-    block_argmax(bv, bi, sm);
+    if (!sampled) {  // every block reduces the candidates to the same token
+      bv = -INFINITY;
+      bi = INT_MAX;
+      for (int b = tid; b < (int)gridDim.x; b += kThreads)
+        better(bv, bi, __ldcg(p.ws.cand_v + b), __ldcg(p.ws.cand_i + b));
+      block_argmax(bv, bi, sm);
+    } else if constexpr (kFrame) {  // every block samples the same token from all the logits
+      bi = sample_top_k(p.ws.logits, p.V, p.temperature, p.noise + (size_t)hi * p.top_k,
+                        p.top_k, reinterpret_cast<int*>(stage), sm);
+    }
     if (tid == 0) {
       sm.token = bi;
-      if (blockIdx.x == 0) p.tokens[n] = bi;
+      if (blockIdx.x == 0) p.tokens[kFrame ? hi : n] = bi;
     }
     __syncthreads();
     QTTS_TIMER_MARK(kStageArgmax)
   }
   // every block read the positions before its first barrier
-  if (blockIdx.x == 0 && tid < 1 + p.n_sec) p.positions[tid] = sm.pos[tid] + p.num_steps;
+  if (blockIdx.x == 0 && tid < 1 + p.n_sec)
+    p.positions[tid] = sm.pos[tid] + (kFrame ? 0 : p.num_steps);
   if (blockIdx.x == 0 && tid == 0) {
-    ++*p.ws.launches;
+    ++p.ws.launches[0];
+    if (kFrame) ++p.ws.launches[1];
     bar[1] = bar_target;  // every block read it before its first arrival
   }
   QTTS_TIMER_STORE

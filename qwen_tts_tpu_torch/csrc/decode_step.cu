@@ -183,9 +183,9 @@ int max_active_clusters(const void* fn, int size) {
 // cooperatively, so a grid that could not be all resident (a persistent
 // kernel whose blocks are not all resident deadlocks at its first barrier)
 // fails to launch instead.
-template <typename CacheT, int KG>
+template <typename CacheT, int KG, bool kFrame>
 cudaError_t grid_for(int KVH, GridInfo* g) {
-  const void* fn = (const void*)decode_persistent<CacheT, KG>;
+  const void* fn = (const void*)decode_persistent<CacheT, KG, kFrame>;
   static const cudaError_t prep =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kDynSmem);
   if (prep != cudaSuccess) return prep;
@@ -202,8 +202,8 @@ cudaError_t grid_for(int KVH, GridInfo* g) {
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_persistent<CacheT, KG>,
-                                                    kThreads, kDynSmem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, decode_persistent<CacheT, KG, kFrame>, kThreads, kDynSmem);
   if (e != cudaSuccess) return e;
   int blocks = per_sm * sms;
   if (blocks > kMaxGrid) blocks = kMaxGrid;
@@ -217,10 +217,10 @@ cudaError_t grid_for(int KVH, GridInfo* g) {
   return cudaSuccess;
 }
 
-template <typename CacheT, int KG>
+template <typename CacheT, int KG, bool kFrame = false>
 int launch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridInfo* info_only) {
   GridInfo g;
-  const cudaError_t ge = grid_for<CacheT, KG>(d.KVH, &g);
+  const cudaError_t ge = grid_for<CacheT, KG, kFrame>(d.KVH, &g);
   if (info_only != nullptr) {
     *info_only = g;
     return (int)ge;
@@ -247,7 +247,8 @@ int launch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridInfo
       (te = tensor_map(&p.tmap[1], p.o, d.L)) != cudaSuccess ||
       (te = tensor_map(&p.tmap[2], p.gu, d.L)) != cudaSuccess ||
       (te = tensor_map(&p.tmap[3], p.down, d.L)) != cudaSuccess ||
-      (p.head.w != nullptr && (te = tensor_map(&p.tmap[4], p.head, 1)) != cudaSuccess))
+      (p.head.w != nullptr &&
+       (te = tensor_map(&p.tmap[4], p.head, io.heads > 1 ? io.heads : 1)) != cudaSuccess))
     return (int)te;
   p.input_norm = static_cast<const bf16*>(d.input_norm);
   p.q_norm = static_cast<const bf16*>(d.q_norm);
@@ -279,6 +280,10 @@ int launch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridInfo
   for (int s = 0; s < kQttsMaxSections; ++s) p.sec[s] = io.sec[s];
   p.normed = io.normed;
   p.logits = io.logits;
+  p.step_embed = static_cast<const bf16*>(io.step_embed);
+  p.noise = io.noise;
+  p.top_k = io.top_k;
+  p.temperature = io.temperature;
   workspace_bytes(d.H, d.I, d.HQ, d.KVH, d.D, d.V, &p.ws, static_cast<char*>(io.workspace));
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(g.blocks);
@@ -290,14 +295,20 @@ int launch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridInfo
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_persistent<CacheT, KG>, p);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, decode_persistent<CacheT, KG, kFrame>, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// The kernel for this decoder's cache type and q heads per kv head.
+// The kernel for this decoder's cache type and q heads per kv head, and
+// whether the launch is a code-predictor frame (x_in beside tokens; a bf16
+// cache and at most 2 q heads a kv head: generation_ok checks).
 int dispatch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridInfo* info_only) {
   const int G = d.HQ / d.KVH;
+  if (io.x_in != nullptr && io.tokens != nullptr) {
+    if (G == 1) return launch<bf16, 1, true>(d, io, st, info_only);
+    return launch<bf16, 2, true>(d, io, st, info_only);
+  }
   if (d.k_scale != nullptr) {
     if (G == 1) return launch<int8_t, 1>(d, io, st, info_only);
     if (G == 2) return launch<int8_t, 2>(d, io, st, info_only);
@@ -310,10 +321,27 @@ int dispatch(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st, GridIn
 
 }  // namespace
 
+// True when a code-predictor frame's options (x_in beside tokens) are ones
+// the kernel takes: a bf16 cache, at most 2 q heads a kv head (the frame
+// kernel's instantiations), at least one step after step 0, a head and a
+// step table for each of them, and for the sampling epilogue
+// 1 <= top_k <= min(kMaxTopK, V), V <= 4096 and a positive temperature;
+// and when no other launch sets them.
+static bool generation_ok(const QttsDecoder& d, const QttsStepIO& io) {
+  if (io.x_in == nullptr || io.tokens == nullptr)
+    return io.heads <= 1 && io.step_embed == nullptr && io.noise == nullptr;
+  if (d.k_scale != nullptr || d.HQ / d.KVH > 2 || io.num_steps < 2 ||
+      io.num_steps - 1 > io.heads || io.step_embed == nullptr)
+    return false;
+  return io.noise == nullptr ||
+         (io.top_k >= 1 && io.top_k <= kMaxTopK && io.top_k <= d.V &&
+          d.V <= kThreads * kSamplePer && io.temperature > 0.f);
+}
+
 int qtts_run_steps(const QttsDecoder& d, const QttsStepIO& io, cudaStream_t st) {
   if (!decoder_ok(d) || io.num_steps <= 0 || io.n_sec < 0 || io.n_sec > kQttsMaxSections ||
       io.positions == nullptr || io.workspace == nullptr || io.cos_tab == nullptr ||
-      io.sin_tab == nullptr)
+      io.sin_tab == nullptr || !generation_ok(d, io))
     return (int)cudaErrorInvalidValue;
   return dispatch(d, io, st, nullptr);
 }
@@ -326,8 +354,9 @@ long long qtts_workspace_bytes(int H, int I, int HQ, int KVH, int D, int V) {
   return (long long)workspace_bytes(H, I, HQ, KVH, D, V, nullptr, nullptr);
 }
 
-// Byte offset in the workspace of the decode kernel's launch count (an
-// unsigned 64-bit word that block 0 of every launch adds one to).
+// Byte offset in the workspace of the decode kernel's launch counts (two
+// unsigned 64-bit words that block 0 adds one to: the first at every
+// launch, the second at a code-predictor frame's launch).
 long long qtts_launch_count_offset() { return (long long)launches_offset(); }
 
 // Byte offset in the workspace of the stage timers (kTimerWords unsigned

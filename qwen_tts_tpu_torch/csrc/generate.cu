@@ -1,5 +1,6 @@
 // N greedy decode steps of the talker in one persistent launch, with the
-// next token fed back on the device, for sm_90a.
+// next token fed back on the device, for sm_90a; and a code-predictor frame
+// in one launch of the same loop (qtts_cp_frame, below).
 //
 // Replaces the Pallas TPU kernel qwen_tts_tpu/ops/generate_kernel.py
 // ::_gen_kernel (:52; pallas_call :709 in _generate_impl :514, wrapper
@@ -67,6 +68,45 @@ int qtts_generate(const QttsDecoder* dec, const void* first_token, const void* e
   io.interleaved = interleaved;
   for (int s = 0; s < n_sec; ++s) io.sec[s] = sec[s];
   io.workspace = workspace;
+  return qtts_run_steps(*dec, io, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// One code-predictor frame of num_steps = 1 + G steps (G groups) from cache
+// row 0 of the decoder `dec`, whose lm_head is the stack of its G' >= G
+// heads [G', H, V] bf16: step 0 from the talker's f32 hidden x_in [H] (no
+// head), step 1 from row first_token (int32 [1], device) of the talker's
+// embedding table embed [*, H] bf16; after step n >= 1, head n - 1 and its
+// token into tokens[n - 1] (int32 [G], device): the argmax when noise is
+// null, else the top_k sample at temperature with the Gumbel noise
+// [G', top_k] f32 (decode_layer.cuh); step n >= 2 from the token's row of
+// codec table n - 2 of codec_embed [G', V, H] bf16. logits, if set,
+// receives each head's f32 row [G, V]. positions (int32 [1], device) holds
+// 0 and is left so; the rope tables are the decoder's. Returns 0 or the
+// first CUDA error; launches on `stream` and does not synchronise.
+int qtts_cp_frame(const QttsDecoder* dec, const void* x_in, const void* first_token,
+                  const void* embed, int heads, const void* codec_embed, const void* noise,
+                  int top_k, float temperature, const void* cos_tab, const void* sin_tab,
+                  void* positions, void* tokens, void* logits, void* workspace, int num_steps,
+                  void* stream) {
+  if (dec->lm_head.w == nullptr || x_in == nullptr || first_token == nullptr ||
+      embed == nullptr || codec_embed == nullptr || tokens == nullptr || heads < 1)
+    return (int)cudaErrorInvalidValue;
+  QttsStepIO io{};
+  io.x_in = static_cast<const float*>(x_in);
+  io.embed = embed;
+  io.first_token = static_cast<const int*>(first_token);
+  io.tokens = static_cast<int*>(tokens);
+  io.num_steps = num_steps;
+  io.cos_tab = static_cast<const float*>(cos_tab);
+  io.sin_tab = static_cast<const float*>(sin_tab);
+  io.positions = static_cast<int*>(positions);
+  io.logits = static_cast<float*>(logits);
+  io.workspace = workspace;
+  io.heads = heads;
+  io.step_embed = codec_embed;
+  io.noise = static_cast<const float*>(noise);
+  io.top_k = top_k;
+  io.temperature = temperature;
   return qtts_run_steps(*dec, io, reinterpret_cast<cudaStream_t>(stream));
 }
 

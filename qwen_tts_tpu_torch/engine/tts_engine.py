@@ -115,6 +115,7 @@ from ..core.config import (
 from ..core.weights import QUANTIZERS, TTSWeights, init_tts_weights, load_tts_weights
 from ..models.decoder import init_state
 from ..models.text_projection import embed_text_ids
+from ..ops.cp_frame import cp_frame
 from ..ops.sampling import gumbel_from_uniform
 from ..runtime.frame_loop import frame_step, frames_chunk, talker_prefill
 from ..vocoder.code2wav import (
@@ -328,6 +329,7 @@ class TTSEngine:
         self._frames_generated = 0
         self._talker_steps = 0
         self._cp_steps = 0
+        self._cp_kernel_frames = 0
         self._talker_state = None
         if cfg.fused_chunks:
             self._build_fused_fns()
@@ -585,11 +587,15 @@ class TTSEngine:
             attn_impl=self._attn_impl, mrope_deltas=self._mrope_deltas,
             cp_state=self._cp_state)
 
-    def _count_steps(self, frames: int, first: bool = False) -> None:
+    def _count_steps(self, frames: int, first: bool = False, routed: int = 0) -> None:
         """Decode steps run: one talker and 14 code-predictor steps a frame
-        (the last group needs no step), and the BOS step of a first chunk."""
+        (the last group needs no step), and the BOS step of a first chunk;
+        and `routed` of the frames, those whose code predictor ran as one
+        launch of the decode-step kernel (`cp_frame.frames` advanced for
+        them when their code ran)."""
         self._talker_steps += frames + int(first)
         self._cp_steps += frames * (self.model_config.num_code_groups - 2)
+        self._cp_kernel_frames += routed
 
     def _generate_chunks(self, text: str, chunk_size: int, with_audio: bool):
         """Yield (audio f32 or None, frames) per chunk: 1 frame, then
@@ -620,6 +626,7 @@ class TTSEngine:
         self._uniform: dict[int, torch.Tensor] = {}    # n -> [n, 15, top_k] f32
         self._ctx: dict[int, torch.Tensor] = {}        # n -> [n, 16] codes of the last chunk
         self._out: dict[int, list] = {}                # n -> host output slots
+        self._routed: dict[tuple, int] = {}            # (first, n) -> its frames on cp_frame
         self._owner: _Stream | None = None
         self._slot = 0
 
@@ -657,9 +664,11 @@ class TTSEngine:
             self._idx0.zero_()
         else:
             state, tok, hid = self._talker._replace(position=self._pos), self._tok, self._hid
+        routed = cp_frame.frames
         state, codes, valid, tok, hid = self._frames(
             state, tok, hid, self._trailing[Tpad], self._t_len, self._idx0,
             self._uniform[n], n)
+        self._routed[first, n] = cp_frame.frames - routed
         self._tok.copy_(tok)
         self._hid.copy_(hid)
         self._idx0.add_(n)
@@ -843,7 +852,7 @@ class TTSEngine:
                 g.record(0)
             self._slot = 0
             self._pos = PREFIX_ROWS + 2
-            self._count_steps(1, first=True)
+            self._count_steps(1, first=True, routed=self._routed[True, 1])
             self._talker_state = self._talker._replace(position=self._pos)
             s.pending.append((0, 1, 0))
             return 0, 1, 0
@@ -868,7 +877,7 @@ class TTSEngine:
             if audio:
                 self._slot = slot
             self._pos += n
-            self._count_steps(n)
+            self._count_steps(n, routed=self._routed[False, n])
             self._talker_state = self._talker._replace(position=self._pos)
             s.pending.append((slot, n, frame0))
             return slot, n, frame0
@@ -1036,6 +1045,7 @@ class TTSEngine:
             if int(token) == CODEC_EOS:
                 break
             uniform = self._draw(req, step, 1)
+            routed = cp_frame.frames
             r = frame_step(
                 mc.talker, mc.code_predictor, self.weights.talker, self.weights.code_predictor,
                 state, token, hidden, trailing, t_len,
@@ -1045,7 +1055,7 @@ class TTSEngine:
                 top_k=cfg.subtalker_top_k, attn_impl=self._attn_impl,
                 mrope_deltas=self._mrope_deltas, cp_state=self._cp_state)
             state, token, hidden = r.state, r.next_token, r.next_hidden
-            self._count_steps(1)
+            self._count_steps(1, routed=cp_frame.frames - routed)
             self._frames_generated = step + 1
             self._talker_state = state
             yield r.codes.cpu().numpy().astype(np.int32)
@@ -1139,25 +1149,28 @@ class TTSEngine:
         return (wav.cpu().numpy()[: T * self.vocoder_config.hop_length],
                 self.sample_rate)
 
-    def decode_launches(self) -> int:
-        """The decode-step kernel's launches so far, as the kernel counts
-        them itself (graph replays included): on the fused path those of
-        the engine's graphs and their warm-up runs, on the per-frame
-        generator all those of the current stream. A device read; CUDA only."""
+    def decode_launches(self, frames: bool = False) -> int:
+        """The decode-step kernel's launches so far (`frames`: only those of
+        one-launch code-predictor frames), as the kernel counts them itself
+        (graph replays included): on the fused path those of the engine's
+        graphs and their warm-up runs, on the per-frame generator all those
+        of the current stream. A device read; CUDA only."""
         from ..ops.decode_step import device_launches
 
         if self.config.fused_chunks:
-            return self._graphs.launches()
-        return device_launches(self.model_config.talker, self.device)
+            return self._graphs.launches(frames)
+        return device_launches(self.model_config.talker, self.device, frames)
 
     def get_metrics(self) -> dict:
         """Sample rate, talker cache position, frames kept, the number of
         the last request (which keys its sampling noise), and the talker
         and code-predictor decode steps run so far, on the fused path frames
         computed past EOS or the cap included, on the per-frame generator
-        none (each one decode-step launch on the "mega"
-        backend, and one decode-attention launch per layer on the "pallas"
-        backend)."""
+        none (each one decode-attention launch per layer on the "pallas"
+        backend; on the "mega" backend one decode-step launch a talker step,
+        and one for each frame's 14 code-predictor steps, its prefill and
+        heads, counted in `cp_kernel_frames`, or one a step where the frame
+        runs the plain code predictor)."""
         state = getattr(self, "_talker_state", None)
         return {
             "sample_rate": self.sample_rate,
@@ -1166,4 +1179,5 @@ class TTSEngine:
             "frames_generated": getattr(self, "_frames_generated", 0),
             "talker_steps": getattr(self, "_talker_steps", 0),
             "cp_steps": getattr(self, "_cp_steps", 0),
+            "cp_kernel_frames": getattr(self, "_cp_kernel_frames", 0),
         }

@@ -10,6 +10,11 @@ loop keeps one for all frames, so a captured frame allocates nothing and
 its cache keeps its address); without one a fresh state is allocated. The
 decoder may be quantized (the engine's `cp_quantize`); its KV cache and its
 15 heads stay bf16, as in the JAX package.
+
+On the "mega" backend a one-stream frame on a CUDA device is one launch of
+the decode-step kernel (`ops/cp_frame.py`: 16 steps from cache row 0, the
+heads and the sampling inside it; `frame_kernel` says when). The plain path
+stays for the CPU, for B slots and for tensor-parallel ranks.
 """
 
 from __future__ import annotations
@@ -18,8 +23,18 @@ import torch
 
 from ..core.config import DecoderConfig
 from ..core.weights import CodePredictorWeights
+from ..ops.cp_frame import cp_frame, kernel_takes
 from ..ops.sampling import sample_logits
 from .decoder import DecodeState, forward_chunk, init_state, matmul, reset_state
+
+
+def frame_kernel(attn_impl: str, device, cfg: DecoderConfig, do_sample: bool,
+                 temperature: float, top_k: int) -> bool:
+    """Whether `cp_predict` runs a one-stream frame (no tensor-parallel
+    rank, a bf16 cache) as one launch of the decode-step kernel: the "mega"
+    backend on a CUDA device, with a config and sampling the kernel takes."""
+    return (attn_impl == "mega" and torch.device(device).type == "cuda"
+            and kernel_takes(cfg, do_sample, temperature, top_k))
 
 
 def cp_predict(
@@ -46,6 +61,14 @@ def cp_predict(
     state are its shard (`parallel/sharding.py::shard_cp_weights`): each
     head's vocab shards are joined before the sample."""
     one = talker_hidden.dim() == 1
+    if one and tp is None and (state is None or state.k_scale is None) and frame_kernel(
+            attn_impl, talker_hidden.device, cfg, do_sample, temperature, top_k):
+        tokens, logits = cp_frame(
+            cfg, w, state if state is not None else init_state(cfg, talker_hidden.device),
+            talker_hidden, first_token, talker_embed_table, noise, do_sample, temperature,
+            top_k, num_groups, return_logits)
+        codes = torch.cat([first_token.reshape(1).to(torch.int64), tokens.to(torch.int64)])
+        return (codes, logits) if return_logits else codes
     hidden = talker_hidden[None] if one else talker_hidden
     if state is None:
         state = init_state(cfg, talker_hidden.device, slots=None if one else hidden.shape[0])

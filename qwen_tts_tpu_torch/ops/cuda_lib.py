@@ -31,6 +31,8 @@ build_log: dict[str, str] = {}   # source name -> nvcc's output (ptxas lines)
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 MAX_SECTIONS = 8   # kQttsMaxSections in csrc/decode_layer.cuh
+MAX_TOP_K = 64     # kMaxTopK: the sampling epilogue's largest top_k
+MAX_SAMPLE_VOCAB = 4096   # 256 threads x kSamplePer: its largest vocabulary
 _INTS = ctypes.c_int * (1 + MAX_SECTIONS)   # a position row: cache row + sections
 
 # Weight forms of one matrix (QttsMat::form in csrc/decode_layer.cuh).
@@ -62,6 +64,7 @@ _SIGNATURES = {
     "qtts_decode_step": ([_DEC] + [_P] * 4 + [_I, _I, _IP] + [_P] * 4, _I),
     "qtts_decode_attention": ([_P] * 7 + [_I] * 7 + [_LL] * 4 + [_P, _P], _I),
     "qtts_generate": ([_DEC] + [_P] * 5 + [_I, _I, _IP, _P, _P, _I, _P], _I),
+    "qtts_cp_frame": ([_DEC] + [_P] * 3 + [_I, _P, _P, _I, _F] + [_P] * 6 + [_I, _P], _I),
 }
 
 

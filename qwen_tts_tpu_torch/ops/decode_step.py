@@ -214,10 +214,11 @@ class Owned:
         for entry in self.arrays.values():
             entry[1] = None
 
-    def launches(self) -> int:
-        """The decode kernel's launches with this workspace so far, as the
-        kernel counts them (a device read: it waits for the stream)."""
-        return 0 if self.workspace is None else _launch_count(self.workspace)
+    def launches(self, frames: bool = False) -> int:
+        """The decode kernel's launches with this workspace so far (`frames`:
+        only its code-predictor frame launches), as the kernel counts them
+        (a device read: it waits for the stream)."""
+        return 0 if self.workspace is None else _launch_count(self.workspace, frames)
 
 
 _ACTIVE = threading.local()   # .owner: the Owned active in this thread
@@ -328,15 +329,16 @@ def rope_spec(cfg: DecoderConfig, mrope_pos: Sequence[int] | None):
     return secs, int(bool(cfg.mrope_interleaved))
 
 
-def device_launches(cfg: DecoderConfig, dev: torch.device) -> int:
+def device_launches(cfg: DecoderConfig, dev: torch.device, frames: bool = False) -> int:
     """The decode kernel's launches with the workspace of `dev`'s current
-    stream (or of the active `Owned`) so far, as the kernel counts them in
-    it (a device read: it waits for the stream)."""
-    return _launch_count(workspace(cfg, dev))
+    stream (or of the active `Owned`) so far (`frames`: only its
+    code-predictor frame launches, `ops/cp_frame.py`), as the kernel counts
+    them in it (a device read: it waits for the stream)."""
+    return _launch_count(workspace(cfg, dev), frames)
 
 
-def _launch_count(ws: torch.Tensor) -> int:
-    off = load_library().qtts_launch_count_offset()
+def _launch_count(ws: torch.Tensor, frames: bool = False) -> int:
+    off = load_library().qtts_launch_count_offset() + 8 * frames
     return int(ws[off:off + 8].view(torch.int64).item())
 
 

@@ -141,10 +141,11 @@ class ChunkGraphs:
             if self.cuda:
                 self._events[slot].synchronize()
 
-    def launches(self) -> int:
+    def launches(self, frames: bool = False) -> int:
         """The decode kernel's launches by the graphs and their warm-up runs
-        (the kernel's own count; a device read behind the stream's work)."""
+        (`frames`: only its code-predictor frame launches; the kernel's own
+        count, a device read behind the stream's work)."""
         if not self.cuda:
             return 0
         with torch.cuda.stream(self.stream):
-            return self.owned.launches()
+            return self.owned.launches(frames)
