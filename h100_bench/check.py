@@ -96,13 +96,16 @@ def tts_numbers(w: dict, cfg: dict, requests: list, plan: dict, seed: int, devic
             "frames_checked": frames, "codes_sampled": int(terms[2])}
 
 
-def lm_numbers(w: dict, lm_cfg: dict, replies: list, plan: dict, seed: int) -> dict:
-    from .reference import lm, qwen3
+def lm_numbers(replies: list, plan: dict, seed: int, reply_gaps) -> dict:
+    """The text LM's numbers over a sample of `replies`: `reply_gaps(prompt,
+    reply, stop)` is the LM family's reference, the gaps of a reply's served
+    ids (and of `stop`, the id that ended it early) below its best logit."""
+    from .reference import qwen3
 
     qwen3.full_precision()
     worst, n = 0.0, 0
     for r in _sample(replies, lambda r: len(r["reply"]), plan["lm_tokens"], seed, 6):
         stop = r["stop_ids"][0] if len(r["reply"]) < r["max"] and r["stop_ids"] else None
-        g = lm.reply_gaps(w, lm_cfg, r["prompt"], r["reply"], stop)
+        g = reply_gaps(r["prompt"], r["reply"], stop)
         worst, n = max(worst, float(g.max())), n + int(g.numel())
     return {"lm_gap": worst, "tokens_checked": n}

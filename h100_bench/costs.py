@@ -103,7 +103,3 @@ def tts_request_flops(cfg: dict, text_ids: int) -> float:
     proj = 2 * (text_ids + 8) * (th * th + th * tp["hidden_size"])
     return proj + 2 * 8 * t["num_layers"] * layer_params(t)
 
-
-def lm_token_flops(c: dict, pos: float) -> float:
-    """Model FLOPs of one text-LM token at position `pos` (head included)."""
-    return step_cost(c, pos, with_head=True)[1]

@@ -1,6 +1,7 @@
 """The voice agent's turn: a closed loop of `demos/local_agent.py::agent_turn`
 turns (the text LM's reply decoded in a thread, each finished sentence
-spoken by the TTS engine as soon as it is ready), one user."""
+spoken by the TTS engine as soon as it is ready), one user. The text LM is
+the one the configuration's family builds (`families/`)."""
 
 from __future__ import annotations
 
@@ -10,17 +11,6 @@ import time
 
 from .. import traffic
 from .common import RecordingEngine, build_engine, frame_cap
-
-
-def lm_config(cfg: dict) -> dict:
-    """The text LM's sizes under the decoder keys the reference and the
-    cost functions read."""
-    return {"num_layers": cfg["num_hidden_layers"], "hidden_size": cfg["hidden_size"],
-            "intermediate_size": cfg["intermediate_size"],
-            "num_q_heads": cfg["num_attention_heads"],
-            "num_kv_heads": cfg["num_key_value_heads"], "head_dim": cfg["head_dim"],
-            "vocab_size": cfg["vocab_size"], "rope_theta": cfg["rope_theta"],
-            "rms_eps": cfg["rms_norm_eps"], "max_seq_len": cfg["max_position_embeddings"]}
 
 
 class RecordingLM:
@@ -42,27 +32,11 @@ class RecordingLM:
 
 
 def setup(run) -> None:
-    from qwen_tts_tpu_torch.core.config import DecoderConfig
-    from qwen_tts_tpu_torch.core.weights import QUANTIZERS
     from qwen_tts_tpu_torch.demos import local_agent
-    from qwen_tts_tpu_torch.models.text_lm import TextLM, chunk_lengths
+    from qwen_tts_tpu_torch.models.text_lm import chunk_lengths
 
-    from ..weights import program_lm
-
-    cfg, mix, dev = run.cfg, run.mix, run.device
-    lc = lm_config(cfg)
-    dc = DecoderConfig(num_layers=lc["num_layers"], hidden_size=lc["hidden_size"],
-                       intermediate_size=lc["intermediate_size"], num_q_heads=lc["num_q_heads"],
-                       num_kv_heads=lc["num_kv_heads"], head_dim=lc["head_dim"],
-                       vocab_size=lc["vocab_size"], max_seq_len=lc["max_seq_len"],
-                       rope_theta=lc["rope_theta"], rms_eps=lc["rms_eps"])
-    w = program_lm(run.weights, dc, dev)
-    kv = "bf16"
-    if run.control:
-        low = cfg["control"]["lm"]
-        w, kv = QUANTIZERS[low["quantize"]](w), low["kv_cache"]
-    impl = "mega" if run.device.type == "cuda" else "dense"
-    lm = TextLM(w, dc, attn_impl=impl, kv_cache=kv, device=dev)
+    cfg, mix = run.cfg, run.mix
+    lm = run.lm_family.build(run, run.weights)
     eng = build_engine(run, cfg["tts"], mix.get("engine"))
     words = mix["words_per_sentence"]
     counts = sorted(set(mix["sentences"]))

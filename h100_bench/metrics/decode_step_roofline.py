@@ -7,10 +7,12 @@ Launches: the engine's talker and code-predictor steps and the text LM's
 steps between the slice's two counter reads (the reads wait for the work
 in flight, so every step they count ran inside the slice), at the mean
 talker position of the frames delivered in the slice, the code
-predictor's positions 2..15 and the LM's reply positions. The kernel's
-own launch count (graph replays included) is the cross-check; when the
-profiler saw fewer of its events than the kernel counts (it can drop a
-persistent kernel's events), the device time is scaled by counted/seen."""
+predictor's positions 2..15 and the LM's mean reply position (the LM's
+step as its family counts it, `b1_step_cost`; none where the family's
+steps do not run in B1). The kernel's own launch count (graph replays
+included) is the cross-check; when the profiler saw fewer of its events
+than the kernel counts (it can drop a persistent kernel's events), the
+device time is scaled by counted/seen."""
 
 import sys
 
@@ -30,15 +32,14 @@ def read(run):
                      for p in range(2, 16)) / 14
     steps = talker + cp
     if "lm_steps" in s.c0:
-        from h100_bench.entries.agent import lm_config
-
-        lc = lm_config(run.cfg)
-        lm = s.delta("lm_steps")
         ids = [len(rp["prompt"]) + i for t in run.turns for rp in t["replies"]
                for i in range(len(rp["reply"]))]
         lm_pos = sum(ids) / len(ids) if ids else 64
-        need += lm * costs.bound_s(*costs.step_cost(lc, lm_pos, True))
-        steps += lm
+        step = run.lm_family.b1_step_cost(run.lm_cfg, lm_pos)
+        if step is not None:
+            lm = s.delta("lm_steps")
+            need += lm * costs.bound_s(*step)
+            steps += lm
     sec, seen = s.kernel_s("decode_persistent")
     counted = s.delta("decode_launches")
     print(f"decode_step_roofline: {steps} steps counted by the host, {counted} launches by "

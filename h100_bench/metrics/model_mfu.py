@@ -4,7 +4,8 @@ benchmark's own functions (`costs.py`): each frame whose audio reached a
 client in the slice (talker step with its head, the code predictor's
 prefill, steps and heads, Code2Wav's share of a 10-frame decode), each
 request sent in it (text projection, the talker's 8-row prefill) and, with
-a text LM, each reply id received in it and each prompt's prefill."""
+a text LM, each reply id received in it and each prompt's prefill, as the
+LM's family counts them (`token_flops`, `prefill_flops`)."""
 
 from h100_bench import costs
 from h100_bench.metrics._shared import frames_between, tts_cfg
@@ -21,17 +22,15 @@ def read(run):
         if s.t0 <= r.start <= s.t1:
             flops += costs.tts_request_flops(cfg, len(r.text.encode()) + 8)
     if run.turns:
-        from h100_bench.entries.agent import lm_config
-
-        lc = lm_config(run.cfg)
+        family, lc = run.lm_family, run.lm_cfg
         for t in run.turns:
             for rp in t["replies"]:
                 P, done = len(rp["prompt"]), 0
                 for when, n in rp["times"]:
                     if s.t0 <= when <= s.t1:
-                        flops += n * costs.lm_token_flops(lc, P + done + n / 2)
+                        flops += n * family.token_flops(lc, P + done + n / 2)
                         if done == 0:    # the prompt's prefill gave the first id
-                            flops += 2 * P * lc["num_layers"] * costs.layer_params(lc)
+                            flops += family.prefill_flops(lc, P)
                     done += n
     if frames == 0 and flops == 0:
         return None

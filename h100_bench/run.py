@@ -7,8 +7,9 @@ mix are looked up by name in `BENCHMARK.json`: the configuration's sizes
 in `configs/<config>.json`, the mix in `traffic/<mix>.json` (whose
 `entry` names the module under `entries/` that drives it), the limits of
 the correctness check in `limits/<cell>.json`, each metric's reader in
-`metrics/<metric>.py`. Set-up makes the weights on the card from the seed,
-builds the program and warms the shapes the mix uses; the window then
+`metrics/<metric>.py`, an agent configuration's text LM in
+`families/<lm_family>.py`. Set-up makes the weights on the card from the
+seed, builds the program and warms the shapes the mix uses; the window then
 runs for `--seconds`; with `--trace 1` a slice in its middle is profiled
 and the per-layer metrics are read, otherwise the end-to-end ones. After
 the window the program is freed and a sample of the served outputs is
@@ -80,6 +81,7 @@ class Run:
         self.slice = None
         self.summary = None
         self.counters0 = self.counters1 = None
+        self.lm_family = self.lm_cfg = None      # an agent's text-LM family and its sizes
         self.__dict__.update(kw)
 
     def tick(self) -> None:
@@ -177,18 +179,24 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
     device = torch.device(args.device)
 
-    from . import check, weights
+    from . import check, families, weights
 
+    family = lm_cfg = None
+    if "tts" in cfg:                   # an agent configuration: its text LM's family
+        try:
+            family = families.load(cfg)
+        except LookupError as e:
+            say(e)
+            return 2
+        lm_cfg = family.lm_config(cfg)
     tts_cfg = cfg.get("tts", cfg)
     w = weights.make_tts(tts_cfg, args.seed, device)
     w.update(weights.make_code2wav(tts_cfg["code2wav"], args.seed + 1, device))
-    if "tts" in cfg:
-        from .entries.agent import lm_config
-
-        w.update(weights.make_lm(lm_config(cfg), args.seed + 2, device))
+    if family is not None:
+        w.update(family.make_weights(lm_cfg, args.seed + 2, device))
     entry = importlib.import_module(f"h100_bench.entries.{mix['entry']}")
     run = Run(cfg=cfg, mix=mix, seed=args.seed, seconds=args.seconds, device=device,
-              control=args.control, weights=w)
+              control=args.control, weights=w, lm_family=family, lm_cfg=lm_cfg)
     entry.setup(run)
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -229,10 +237,8 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     numbers = check.tts_numbers(w, tts_cfg, run.requests, mix["check"], args.seed, device,
                                 control=args.control)
-    if "tts" in cfg:
-        from .entries.agent import lm_config
-
-        numbers.update(check.lm_numbers(w, lm_config(cfg), replies, mix["check"], args.seed))
+    if family is not None:
+        numbers.update(family.check_numbers(w, lm_cfg, replies, mix["check"], args.seed))
     numbers["failed"] = failed
     say(f"check: {numbers.get('frames_checked', 0)} frames, "
         f"{numbers.get('codes_sampled', 0)} sampled codes, "

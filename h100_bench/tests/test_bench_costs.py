@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from h100_bench import costs, weights
+from h100_bench.families import qwen3
 
 C = {"num_layers": 2, "hidden_size": 4, "intermediate_size": 6, "num_q_heads": 2,
      "num_kv_heads": 1, "head_dim": 2, "vocab_size": 10}
@@ -24,7 +25,8 @@ def test_step_cost_by_hand():
     assert nbytes == (2 * 120 * 2 + 28 * 2 + 80) + 2 * 2 * 1 * 3 * 4 + (16 + 32 + 40) == 752
     assert flops == 2 * 2 * 120 + 2 * 4 * 10 + 4 * 2 * 2 * 4 * 2 == 688
     assert costs.step_cost(C, 3, with_head=False) == (752 - 80 - 40, 688 - 80)
-    assert costs.lm_token_flops(C, 3) == 688
+    assert qwen3.token_flops(C, 3) == 688 and qwen3.b1_step_cost(C, 3) == (752, 688)
+    assert qwen3.prefill_flops(C, 5) == 2 * 5 * 2 * 120
 
 
 def test_attention_cost_by_hand():

@@ -48,8 +48,10 @@ def _decoder_specs(prefix: str, c: dict, heads: bool):
     return out
 
 
-def _draw(specs, seed: int, device, dtype) -> dict:
-    """One buffer for all `specs`, one normal_ draw, then views scaled in place."""
+def draw(specs, seed: int, device, dtype) -> dict:
+    """One buffer for all `specs`, one normal_ draw, then views scaled in
+    place. `specs` are (name, shape, kind, scale): kind "normal" (times
+    `scale`), "norm" (1 + 0.1 N(0, 1)) or "snake" (0.1 N(0, 1))."""
     sizes = [math.prod(shape) for _n, shape, _k, _s in specs]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -82,7 +84,7 @@ def make_tts(cfg: dict, seed: int, device) -> dict:
               ("text.fc1_b", (th,), "normal", 0.02),
               ("text.fc2_w", (th, ts), "normal", th ** -0.5),
               ("text.fc2_b", (ts,), "normal", 0.02)]
-    w = _draw(specs, seed, device, torch.bfloat16)
+    w = draw(specs, seed, device, torch.bfloat16)
     # EOS's logit held at 0, below the best of the other codes: every request
     # runs to its frame cap, so each seed asks for the same work (with the
     # column drawn, some seeds' talkers end many requests within a chunk)
@@ -92,7 +94,7 @@ def make_tts(cfg: dict, seed: int, device) -> dict:
 
 def make_lm(cfg: dict, seed: int, device) -> dict:
     """The text LM, bf16, from `seed`; its head is the embedding (tied)."""
-    return _draw(_decoder_specs("lm", cfg, heads=False)
+    return draw(_decoder_specs("lm", cfg, heads=False)
                  + [("lm.embed", (cfg["vocab_size"], cfg["hidden_size"]), "normal",
                      cfg["hidden_size"] ** -0.5)], seed, device, torch.bfloat16)
 
@@ -155,7 +157,7 @@ def code2wav_specs(c: dict):
 
 def make_code2wav(cfg: dict, seed: int, device) -> dict:
     """Code2Wav in f32, the dtype its configuration serves, from `seed`."""
-    return _draw(code2wav_specs(cfg), seed, device, torch.float32)
+    return draw(code2wav_specs(cfg), seed, device, torch.float32)
 
 
 # ── the port's structures, built from the same tensors ──────────────────
