@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (`qwen_tts_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 24     # phase 1, then phase 24 alone
 
 Phases (any failure raises, so the exit code is nonzero and no result line
 is printed):
@@ -276,10 +277,22 @@ is printed):
      and plain ops, one launch, one launch, 14 launches), its decode-step
      launches a frame by the kernel's own count (1 against 14), its kernels
      under the profiler, and the frame's bound (16 rows of the decoder's
-     and 15 heads' weight bytes).
+     and 15 heads' weight bytes);
+ 24. DeepSeek-V2-Lite's kernels at its published widths, each against its
+     plain version at the main path's shapes, max |diff| / max |value| <
+     `DSV2_MAX_REL`, eagerly and after a captured launch is replayed at
+     other inputs: `moe_experts_decode` (one row, top-6 of 64 experts and
+     the shared expert), `moe_experts_prefill` (64 rows), `mla_decode_attn`
+     at positions 64, 104 and 2,047 (replayed 40 rows away); each one's
+     device time as one CUDA graph, its plain version's, its bound (bytes
+     over 3.35 TB/s); then the LM itself (random bf16 weights from a seed)
+     on its main path: three 40-id `generate_stream` replies, the kernels'
+     own launch counts equal to 27 (MLA) and 26 (experts) a decode step and
+     26 a prefill, and the served ids equal to eager steps along them or
+     first parting at a near tie (`DSV2_NEAR_TIE_ULPS`).
 The next-to-last line is a JSON object describing the kernels, one entry
-per quantized form and one for each text-LM form of the decode step as
-well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
+per quantized form, one for each text-LM form of the decode step and one
+for each DeepSeek-V2 kernel form as well; the last line is {"ok": true, "device": {...}}. JAX and the JAX
 package are blocked for the whole run: the port must not need them.
 """
 
@@ -328,6 +341,18 @@ GEN_FORMS = ("int8", "int4", "mixed")   # weight forms of the kv8 generation pha
 # part from the plain one only where the plain margin is a few bf16 ulps
 CP_FRAME_MAX_ABS = 0.05
 NEAR_TIE_ULPS = 3.0
+# phase 24: DeepSeek-V2-Lite's kernels against their plain versions, max
+# |diff| over max |value| (readings 4e-7 to 1.1e-6: f32 sums in another
+# order; a wrong expert, row or position reads ~1e-1 or more)
+DSV2_MAX_REL = 1e-4
+DSV2_MLA_POSITIONS = (64, 104, 2047)   # the cell's first and last step rows; the cache's end
+DSV2_REPLIES = 3
+# a served id may differ from the eager steps' only where the two logits
+# lie within this many bf16 ulps: the head's output is bf16 (0.031 apart
+# at the top logits, ~4-5) and the expert kernel's f32 atomics sum in no
+# fixed order, so a tie in bf16 can fall either way (first reading: one
+# ulp, 0.03125)
+DSV2_NEAR_TIE_ULPS = 2.0
 
 
 def _quant_forms():
@@ -3088,11 +3113,216 @@ def decode_launches_implied(m0: dict, m1: dict) -> int:
         m1["cp_steps"] - m0["cp_steps"] - 14 * kf)
 
 
+def _dsv2_tensors(cfg, seed: int) -> dict:
+    """DeepSeek-V2 tensors of `tensor_specs` drawn in bf16 on the card
+    (matrices N(0, 1/fan_in), norms 1 + 0.1 N(0, 1)): `init_tensors` draws
+    in f32, which at the published widths would not fit."""
+    import torch
+    from qwen_tts_tpu_torch.models import deepseek_v2 as ds
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, shape, kind, scale in ds.tensor_specs(cfg):
+        t = torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(generator=gen)
+        out[name] = t.mul_(0.1).add_(1.0) if kind == "norm" else t.mul_(scale)
+    return out
+
+
+def _rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _moe_bytes(cfg, T: int, ids) -> int:
+    """Bytes one expert launch must move: the chosen experts' and the shared
+    expert's bf16 weights once, each row's h (bf16), ids and weights, and
+    its f32 residual row read and written."""
+    H, Ie, k = cfg.hidden_size, cfg.moe_intermediate_size, cfg.num_experts_per_tok
+    expert = 3 * H * Ie * 2
+    return (int(ids.unique().numel()) * expert + cfg.n_shared_experts * expert
+            + T * (H * 2 + k * 12 + H * 8))
+
+
+def _mla_bytes(cfg, pos: int) -> int:
+    """Bytes of one latent-attention launch: rows [0, pos] of the bf16
+    latent cache, the f32 queries read and the f32 output written."""
+    NH, C, R = cfg.num_attention_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    return (pos + 1) * (C + R) * 2 + NH * (C + R) * 4 + NH * C * 4
+
+
+def dsv2_kernels(cfg, gen, card) -> list:
+    """Phase 24's kernels alone: each form against its plain version at the
+    main path's shapes, eagerly and after a captured launch is replayed at
+    other experts or another position; then its device time as one CUDA
+    graph of back-to-back launches (the expert weights rotated over two
+    layers' worth, so that no launch finds the last one's in the L2
+    cache), the plain version's eager time and the bound."""
+    import torch
+    from qwen_tts_tpu_torch.models import deepseek_v2 as ds
+    from qwen_tts_tpu_torch.ops import mla_attention, moe
+
+    H, E, k = cfg.hidden_size, cfg.n_routed_experts, cfg.num_experts_per_tok
+    Ie, Is = cfg.moe_intermediate_size, cfg.moe_intermediate_size * cfg.n_shared_experts
+
+    def mat(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                * shape[-1] ** -0.5)
+    layers = [(mat(E, 2 * Ie, H), mat(E, H, Ie), mat(2 * Is, H), mat(H, Is)) for _ in range(2)]
+    router = torch.randn(H, E, generator=gen, device="cuda") * H ** -0.5 * 8
+    rows = []
+    for T, name in ((1, "moe_experts_decode"), (64, "moe_experts_prefill")):
+        form = getattr(moe, name)
+        count = torch.zeros(1, dtype=torch.int64, device="cuda")
+        h = torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16)
+        x0 = torch.randn(T, H, generator=gen, device="cuda")
+        ids, w = ds.route(cfg, h, router)
+        got = form(x0.clone(), h, ids, w, *layers[0], count)
+        err = _rel(got - x0, moe.moe_experts_reference(x0.clone(), h, ids, w, *layers[0]) - x0)
+        xs, hs = x0.clone(), h.clone()
+        form(xs, hs, *ds.route(cfg, hs, router), *layers[0], count)   # once before capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            xs.copy_(x0)
+            form(xs, hs, *ds.route(cfg, hs, router), *layers[0], count)
+        hs.copy_(torch.randn(T, H, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        ids2, w2 = ds.route(cfg, hs, router)
+        g_err = _rel(xs - x0, moe.moe_experts_reference(x0.clone(), hs, ids2, w2, *layers[0]) - x0)
+        torch.cuda.synchronize()
+        assert int(count) == 3, (name, int(count))               # 2 eager, 1 replay
+        reps = 200 if T == 1 else 50
+        at = [0]
+
+        def launch(form=form, h=h, ids=ids, w=w, x=x0.clone()):
+            at[0] += 1
+            form(x, h, ids, w, *layers[at[0] % 2], count)
+        ms = _graph_ms(lambda: [launch() for _ in range(reps)], 3) / reps
+        plain = _time_ms(lambda: moe.moe_experts_reference(x0.clone(), h, ids, w, *layers[0]), 5)
+        nbytes = _moe_bytes(cfg, T, ids)
+        rows.append({"kernel": name, "rows": T, "rel_err": err, "graph_rel_err": g_err,
+                     "experts_touched": int(ids.unique().numel()), "kernel_ms": ms,
+                     "plain_ms": plain, "bytes": nbytes, "bound_ms": _bound_ms(nbytes, 0)[0]})
+    S, NH, C, R = (cfg.max_seq_len, cfg.num_attention_heads, cfg.kv_lora_rank,
+                   cfg.qk_rope_head_dim)
+    cache = torch.randn(S, C + R, generator=gen, device="cuda").to(torch.bfloat16)
+    work = mla_attention.workspace(S, NH, C, "cuda")
+    scale = ds.softmax_scale(cfg)
+    for pos in DSV2_MLA_POSITIONS:
+        count = torch.zeros(1, dtype=torch.int64, device="cuda")
+        q_lat = torch.randn(NH, C, generator=gen, device="cuda") * 0.2
+        q_pe = torch.randn(NH, R, generator=gen, device="cuda") * 0.2
+        p = torch.full((), pos, dtype=torch.int32, device="cuda")
+        got = mla_attention.mla_decode_attention(q_lat, q_pe, cache, p, scale, work, count)
+        err = _rel(got, mla_attention.mla_attention_reference(q_lat, q_pe, cache, pos, scale))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            g_out = mla_attention.mla_decode_attention(q_lat, q_pe, cache, p, scale, work, count)
+        other = pos - 40 if pos > 40 else pos + 40
+        p.fill_(other)
+        graph.replay()
+        g_err = _rel(g_out, mla_attention.mla_attention_reference(q_lat, q_pe, cache, other,
+                                                                  scale))
+        p.fill_(pos)
+        torch.cuda.synchronize()
+        assert int(count) == 2, (pos, int(count))                # 1 eager, 1 replay
+        ms = _graph_ms(lambda: [mla_attention.mla_decode_attention(
+            q_lat, q_pe, cache, p, scale, work, count) for _ in range(200)], 3) / 200
+        plain = _time_ms(lambda: mla_attention.mla_attention_reference(q_lat, q_pe, cache, pos,
+                                                                        scale), 20)
+        nbytes = _mla_bytes(cfg, pos)
+        rows.append({"kernel": "mla_decode_attn", "position": pos, "rel_err": err,
+                     "graph_rel_err": g_err, "kernel_ms": ms, "plain_ms": plain,
+                     "bytes": nbytes, "bound_ms": _bound_ms(nbytes, 0)[0]})
+    for r in rows:
+        print("DeepSeek-V2 kernel vs plain", json.dumps(r), card)
+        assert r["rel_err"] < DSV2_MAX_REL and r["graph_rel_err"] < DSV2_MAX_REL, r
+    return rows
+
+
+def dsv2_phase(card) -> dict:
+    """Phase 24: DeepSeek-V2-Lite's kernels alone (`dsv2_kernels`), then the
+    LM at its published widths on its main path: `generate_stream` of
+    `DSV2_REPLIES` 40-id replies to 64-id prompts, the prefill and each
+    chunk one graph replay; the kernels' own launch counts over the run
+    against the host's steps and prefills; the served ids against the same
+    steps run eagerly (`forced_logits`), equal or first parting where the
+    eager logits of the two ids lie within `DSV2_NEAR_TIE_ULPS` bf16 ulps."""
+    import torch
+    from qwen_tts_tpu_torch.models import deepseek_v2 as ds
+    from qwen_tts_tpu_torch.runtime.lm_driver import chunk_lengths
+
+    cfg = ds.DeepseekV2Config(max_position_embeddings=2048)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 24)
+    rows = dsv2_kernels(cfg, gen, card)
+    lm = ds.DeepseekV2LM(ds.weights_from(_dsv2_tensors(cfg, SEED + 25), cfg), cfg,
+                         device="cuda")
+    lm.warm(64, chunk_lengths(40, 16))
+    prompts = [torch.randint(0, 256, (64,), generator=gen, device="cuda").tolist()
+               for _ in range(DSV2_REPLIES)]
+    c0, steps0 = lm.kernel_launches(), lm.steps + lm.warm_steps
+    t0 = time.perf_counter()
+    replies = [[t for ids in lm.generate_stream(p, 40, 16) for t in ids] for p in prompts]
+    wall = time.perf_counter() - t0
+    steps = lm.steps + lm.warm_steps - steps0
+    counted = {k: v - c0[k] for k, v in lm.kernel_launches().items()}
+    want = {"mla_decode_attn": steps * cfg.num_hidden_layers,
+            "moe_experts_decode": steps * cfg.moe_layers,
+            "moe_experts_prefill": DSV2_REPLIES * cfg.moe_layers}
+    print(f"DeepSeek-V2-Lite main path: {DSV2_REPLIES} replies of 40 ids in {wall:.3f} s, "
+          f"{steps} decode steps; the kernels' own counts {counted} against {want} {card}")
+    assert counted == want and steps == DSV2_REPLIES * 39, (counted, want, steps)
+    partings = []
+    for p, reply in zip(prompts, replies):
+        logits = lm.forced_logits(p + reply[:-1], len(p))
+        eager = logits.argmax(-1).tolist()
+        if eager != reply:
+            i = next(i for i, (a, b) in enumerate(zip(eager, reply)) if a != b)
+            top = float(logits[i, eager[i]])
+            ulps = (top - float(logits[i, reply[i]])) / _bf16_ulp(top)
+            partings.append(ulps)
+            assert ulps <= DSV2_NEAR_TIE_ULPS, (i, ulps)
+    print(f"DeepSeek-V2-Lite served ids against eager steps: {len(partings)} of "
+          f"{DSV2_REPLIES} replies part, at logit gaps of {partings} bf16 ulps")
+    del lm
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "launches": counted, "partings": partings}
+
+
+def dsv2_entries(res: dict) -> list:
+    """Phase 24's entries of the kernels line: one a kernel form, its
+    launches on the main path by its own count, its worst error against
+    the plain version, its times at the main path's shape (MLA at the
+    cell's last step row, with every position timed)."""
+    out = []
+    for form, src in (("moe_experts_decode", "moe_experts.cu"),
+                      ("moe_experts_prefill", "moe_experts.cu"),
+                      ("mla_decode_attn", "mla_attention.cu")):
+        rows = [r for r in res["kernels"] if r["kernel"] == form]
+        main = next((r for r in rows if r.get("position") == DSV2_MLA_POSITIONS[1]), rows[0])
+        e = {"name": form, "route": "cuda", "source": f"qwen_tts_tpu_torch/csrc/{src}",
+             "replaces": "none (the JAX package has no such layer)",
+             "launches": res["launches"][form],
+             "max_abs_err": max(max(r["rel_err"], r["graph_rel_err"]) for r in rows),
+             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": "bytes", "library_ms": None}
+        if form == "mla_decode_attn":
+            e["by_position"] = {str(r["position"]): r for r in rows}
+        out.append(e)
+    return out
+
+
 def _phase_done(n: int) -> None:
     print(f"phase {n} done at {time.perf_counter() - _T0:.1f} s")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one NVIDIA GPU.")
+    ap.add_argument("--only", type=int, choices=(24,),
+                    help="run phase 1 and then this phase alone (it needs no other)")
+    args = ap.parse_args(argv)
     sys.meta_path.insert(0, _NoJax())
     import torch
 
@@ -3123,6 +3353,14 @@ def main() -> int:
                 print(f"  ptxas {src}:", line.strip())
 
     _phase_done(1)
+    if args.only == 24:
+        dsv2 = dsv2_phase(card)
+        _phase_done(24)
+        print(json.dumps({"kernels": dsv2_entries(dsv2)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ── phase 2: decode-step kernel vs plain at full width ──
     eng = TTSEngine(TTSConfig())
@@ -3452,6 +3690,11 @@ def main() -> int:
     cp_res = cp_frame_phase(eng, card)
 
     _phase_done(23)
+
+    # ── phase 24: DeepSeek-V2-Lite's kernels and its LM's main path ──
+    dsv2 = dsv2_phase(card)
+
+    _phase_done(24)
     assert all(math.isfinite(e) for e in errs + [attn_err, mesh["max_abs_err"], gen_err,
                                                  *qerr.values(),
                                                  *gerr.values(), slot_attn["max_abs_err"],
@@ -3555,6 +3798,7 @@ def main() -> int:
            "kernels_per_call": qgen_t[q]["kernels_per_call"],
            "bound_ms_per_step_256": qgen_t[q]["bound_ms_per_step"]}
           for q in GEN_FORMS],
+        *dsv2_entries(dsv2),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

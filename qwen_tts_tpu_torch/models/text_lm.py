@@ -41,11 +41,10 @@ from ..core.weights import (
     make_rope_table,
     quantize_lm_head,
 )
-from ..runtime.chunk_graphs import ChunkGraphs
 from ..models.decoder import init_state, prefill
 from ..ops import decode_step
 from ..runtime.generate import generate_tokens
-from ..utils.timing import span
+from ..runtime.lm_driver import LMDriver, chunk_lengths  # noqa: F401  (callers import it here)
 
 TEXT_LM_CONFIG = DecoderConfig(
     num_layers=28,
@@ -150,28 +149,9 @@ def _prefill_ids(cfg: DecoderConfig, w: DecoderWeights, ids: torch.Tensor,
     return prefill(cfg, w, state, w.embed[ids])
 
 
-def chunk_lengths(max_new_tokens: int, chunk: int) -> tuple[int, ...]:
-    """The chunk lengths a stream of `max_new_tokens` ids runs after the
-    prefill's first: `chunk`, and the remainder's (JAX compiles one scan for
-    each)."""
-    rest = max(max_new_tokens - 1, 0)
-    return tuple(sorted({n for n in (min(chunk, rest), rest % chunk) if n > 0}))
-
-
-class _Stream:
-    """One `generate_stream`'s claim on the LM's static state: `parked`
-    holds its copy of the state while another stream holds it; `number`
-    names its spans."""
-
-    __slots__ = ("parked", "number")
-
-    def __init__(self, number: int = 0):
-        self.parked: dict | None = None
-        self.number = number
-
-
-class TextLM:
-    """Prompt ids in, greedy token ids out (JAX `TextLM`). `kv_cache="int8"`
+class TextLM(LMDriver):
+    """Prompt ids in, greedy token ids out (JAX `TextLM`): Qwen3's bodies on
+    the port's text-LM driver (`runtime/lm_driver.py`). `kv_cache="int8"`
     stores the cache per row quantized, as the talker's int8 cache. The
     weights are bf16 (`tie_head`) or a quantized form of them
     (`core/weights.py::QUANTIZERS`: int8, int4-g128 or mixed layers, each
@@ -209,28 +189,20 @@ class TextLM:
             raise ValueError(f"unknown attn_impl {attn_impl!r}: dense, pallas or mega")
         if kv_cache not in ("bf16", "int8"):
             raise ValueError(f"unknown kv_cache {kv_cache!r}: bf16 or int8")
-        self.device = _require_device(device)
-        if weights.embed.device != self.device:
-            raise ValueError(f"the weights are on {weights.embed.device}, not {self.device}")
+        device = _require_device(device)
+        if weights.embed.device != device:
+            raise ValueError(f"the weights are on {weights.embed.device}, not {device}")
         self.cfg = cfg
         self.w = weights
         self.tokenizer = tokenizer
         self.attn_impl = attn_impl
         self.kv_dtype = torch.int8 if kv_cache == "int8" else torch.bfloat16
-        self.steps = 0   # single-token decode steps run (the prefill's token excluded)
-        self._streams = 0   # streams begun, which number them
-        dev = self.device
-        self._graphs = g = ChunkGraphs(dev, "lm")
-        self._state = init_state(cfg, dev, self.kv_dtype, device_pos=attn_impl != "mega")
-        self._pos = 0                                   # the host position
-        self._tok = torch.zeros(1, dtype=torch.long, device=dev)   # the carried token
-        self._first = g.host(1, torch.long)             # the prefill's token, on the host
-        self._ids: dict[int, tuple] = {}                # prompt length -> (host, device)
-        self._out: dict[int, torch.Tensor] = {}         # chunk length -> host ids [n]
-        self._owner: _Stream | None = None              # the stream that holds the state
+        super().__init__(device)
+        g = self._graphs
+        self._state = init_state(cfg, device, self.kv_dtype, device_pos=attn_impl != "mega")
         if g.cuda and attn_impl == "mega":
             with g.on_stream():     # the kernel's workspace, before any graph holds it
-                decode_step.workspace(cfg, dev)
+                decode_step.workspace(cfg, device)
 
     # ── the graphs' bodies ───────────────────────────────────────────────
 
@@ -258,144 +230,22 @@ class TextLM:
         self._tok.copy_(tokens[-1:])
         self._out[n].copy_(tokens, non_blocking=True)
 
-    # ── capture and replay ───────────────────────────────────────────────
+    def _cache_prefix(self, p: int) -> list[torch.Tensor]:
+        st = self._state
+        return [t[:, :, :p] for t in (st.k_cache, st.v_cache, st.k_scale, st.v_scale)
+                if t is not None]
 
-    def _buffers(self, P: int, lengths) -> None:
-        g = self._graphs
-        if P not in self._ids:
-            self._ids[P] = (g.host(P, torch.long),
-                            torch.zeros(P, dtype=torch.long, device=self.device))
-        for n in lengths:
-            if n not in self._out:
-                self._out[n] = g.host(n, torch.int32)
+    def _set_position(self, p: int) -> None:
+        """The state's device position, or on "mega" the decode kernel's
+        array."""
+        st = self._state
+        if st.pos is not None:
+            st.pos.fill_(p)
+        elif self._graphs.cuda:
+            decode_step.positions(st, (p,), self.device)
 
-    def _prepare(self, P: int, lengths=()) -> None:
-        """The graphs of prompt length P and chunk lengths `lengths`: each
-        missing one run once on the graphs' stream (from position P, as a
-        stream would run it), then captured. The state they leave is
-        overwritten by the next prefill."""
-        cfg, g = self.cfg, self._graphs
-        if P < 1 or P > cfg.max_seq_len:
-            raise ValueError(f"a prompt of {P} ids does not fit max_seq_len {cfg.max_seq_len}")
-        self._buffers(P, lengths)
-        keys = [("prefill", P)] + [("chunk", n) for n in lengths]
-        missing = [k for k in keys if k not in g.graphs]
-        if not g.cuda or not missing:
-            return
-        if self._owner is not None:     # the runs below overwrite the state
-            self._park(self._owner)
-            self._owner = None
-        g.stream.wait_stream(torch.cuda.current_stream(self.device))
-        for kind, m in missing:
-            if kind == "chunk" and P + m > cfg.max_seq_len:
-                raise ValueError(f"positions [{P}, {P + m}) exceed max_seq_len "
-                                 f"{cfg.max_seq_len}")
-            with g.on_stream():
-                self._prefill_body(P)
-                self._pos = P
-                if kind == "chunk":
-                    self._chunk_body(m)
-            if kind == "prefill":
-                g.capture(("prefill", P), lambda: self._prefill_body(P))
-            else:
-                g.capture(("chunk", m), lambda: self._chunk_body(m),
-                          carried=(self._state,))
-        self._pos = 0
-
-    def warm(self, prompt_len: int, chunk_lengths=()) -> None:
-        """Capture the prefill graph of `prompt_len` ids and the graphs of
-        `chunk_lengths` ahead of traffic (on the CPU: nothing to capture)."""
-        self._prepare(prompt_len, tuple(chunk_lengths))
-
-    def _replay(self, key: tuple, body, ident: int) -> None:
-        """Enqueue a graph for stream `ident` and wait until its outputs are
-        on the host."""
-        g = self._graphs
-        with g.on_stream():
-            g.replay(key, body, ident)
-            g.record(0)
-        g.wait(0, ident)
-
-    # ── parking: several streams on one static state ─────────────────────
-
-    def _acquire(self, s: _Stream) -> None:
-        """Give stream `s` the static state: park the holder's, restore
-        `s`'s. Nothing is copied when `s` holds it already."""
-        if self._owner is s:
-            return
-        if self._owner is not None:
-            self._park(self._owner)
-        if s.parked is not None:
-            self._restore(s)
-        self._owner = s
-
-    def _park(self, s: _Stream) -> None:
-        """Copy the holder's cache rows [0, pos), carried token and host
-        position into tensors of its own (its device position equals the
-        host's between replays)."""
-        st, p = self._state, self._pos
-        with self._graphs.on_stream():
-            s.parked = {"cache": [t[:, :, :p].clone() for t in (st.k_cache, st.v_cache,
-                                                               st.k_scale, st.v_scale)
-                                  if t is not None],
-                        "tok": self._tok.clone(), "pos": p}
-
-    def _restore(self, s: _Stream) -> None:
-        """Copy a parked state back into the static tensors, set the device
-        position (the state's, or on "mega" the decode kernel's array) and
-        free the copy."""
-        g, st, d = self._graphs, self._state, s.parked
-        p = d["pos"]
-        caches = [t for t in (st.k_cache, st.v_cache, st.k_scale, st.v_scale) if t is not None]
-        g.owned.forget()
-        with g.on_stream():
-            for dst, src in zip(caches, d["cache"]):
-                dst[:, :, :p].copy_(src)
-            self._tok.copy_(d["tok"])
-            if st.pos is not None:
-                st.pos.fill_(p)
-            elif g.cuda:
-                decode_step.positions(st, (p,), self.device)
-        self._pos = p
-        s.parked = None
-
-    def _release(self, s: _Stream) -> None:
-        """A stream ended or was closed: drop what it holds."""
-        if self._owner is s:
-            self._owner = None
-        s.parked = None
-
-    def _prefill(self, prompt_ids, lengths, s: _Stream | None = None) -> int:
-        """Upload the prompt, replay its prefill graph for stream `s` (for
-        none when None: the state is left unheld); the first token."""
-        ids = list(prompt_ids)
-        P = len(ids)
-        self._prepare(P, lengths)
-        self._acquire(s or _Stream())
-        if s is None:
-            self._owner = None
-        self._ids[P][0].copy_(torch.tensor(ids, dtype=torch.long))
-        if self._graphs.cuda:     # the caller's work on the weights comes first
-            self._graphs.stream.wait_stream(torch.cuda.current_stream(self.device))
-        self._replay(("prefill", P), lambda: self._prefill_body(P), s.number if s else 0)
-        self._pos = P
-        return int(self._first[0])
-
-    def _chunk(self, n: int, ident: int = 0) -> list[int]:
-        """Replay the graph of n steps from the carried token (for stream
-        `ident`); their ids."""
-        if self._pos + n > self.cfg.max_seq_len:
-            raise ValueError(f"positions [{self._pos}, {self._pos + n}) exceed max_seq_len "
-                             f"{self.cfg.max_seq_len}")
-        self._replay(("chunk", n), lambda: self._chunk_body(n), ident)
-        self._pos += n
-        self.steps += n
-        return self._out[n].tolist()
-
-    def decode_launches(self) -> int:
-        """The decode-step kernel's launches by this LM's graphs and their
-        warm-up runs, as the kernel counts them (a device read; CUDA)."""
-        return self._graphs.launches()
+    def _carried(self) -> tuple:
+        return (self._state,)
 
     # ── public API ───────────────────────────────────────────────────────
 
@@ -405,36 +255,3 @@ class TextLM:
         time (JAX: one scan of them all; the ids are the same)."""
         return [t for ids in self.generate_stream(prompt_ids, max_new_tokens,
                                                   chunk=GENERATE_CHUNK) for t in ids]
-
-    def generate_stream(self, prompt_ids, max_new_tokens: int = 256, chunk: int = 32,
-                        stop_ids: tuple = ()):
-        """Greedy generation yielding lists of ids as they decode: the first
-        id alone, then `chunk` at a time, each chunk one graph replay read
-        back once, the next enqueued only after that read (JAX's stream).
-        Ends before a stop id (which is not yielded). The ids are
-        `generate`'s, whatever the chunk size."""
-        if max_new_tokens < 1:
-            return
-        self._streams += 1
-        me = _Stream(self._streams)
-        try:
-            with span("lm.prefill", me.number):
-                first = self._prefill(prompt_ids, chunk_lengths(max_new_tokens, chunk), me)
-            if first in stop_ids:
-                return
-            yield [first]
-            produced = 1
-            while produced < max_new_tokens:
-                n = min(chunk, max_new_tokens - produced)
-                self._acquire(me)
-                with span("lm.chunk", me.number, n):
-                    host = self._chunk(n, me.number)
-                for i, t in enumerate(host):
-                    if t in stop_ids:
-                        if i:
-                            yield host[:i]
-                        return
-                yield host
-                produced += n
-        finally:
-            self._release(me)

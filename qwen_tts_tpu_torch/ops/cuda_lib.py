@@ -65,6 +65,9 @@ _SIGNATURES = {
     "qtts_decode_attention": ([_P] * 7 + [_I] * 7 + [_LL] * 4 + [_P, _P], _I),
     "qtts_generate": ([_DEC] + [_P] * 5 + [_I, _I, _IP, _P, _P, _I, _P], _I),
     "qtts_cp_frame": ([_DEC] + [_P] * 3 + [_I, _P, _P, _I, _F] + [_P] * 6 + [_I, _P], _I),
+    "qtts_mla_decode_attention": ([_P] * 4 + [_I] * 4 + [_F, _P, _P, _P, _I, _P, _P], _I),
+    "qtts_moe_experts_decode": ([_P] * 3 + [_I] + [_P] * 4 + [_I] * 4 + [_P] * 3, _I),
+    "qtts_moe_experts_prefill": ([_P, _I] + [_P] * 3 + [_P] * 4 + [_I] * 4 + [_P] * 3, _I),
 }
 
 
